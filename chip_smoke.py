@@ -6,26 +6,45 @@
 Run from the root of a checkout. Phases, one line each:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the kernels of minimd_torch/csrc with nvcc;
+2. build the kernels of minimd_torch/csrc with nvcc (one process per
+   source, side by side);
 3. hold each kernel against its plain PyTorch version on the card, f32:
    the LJ force (ev and noev) at 4k, 131k, 864k, a pinned capacity=64
    grid and s=6 on a (2,2,2) grid (image aliasing); the pull rebin,
    bit-identical, on the same grids but the last, on a perturbed state;
-4. the 4k/10000-step f32 acceptance gate against tests/golden/4k.lj with
-   the reference's statistical criterion (validate.compare_traces);
-5. the main path at full width: Simulation.from_input on the benchmark
+   the two EAM kernels (density + embedding, force) on the same five
+   shapes of the EAM deck: rho, fp (bit-identical to the plain embedding
+   of the kernel's own rho), the embed energy sum, forces, energy and
+   virial, ev and noev;
+4. the 4k/10000-step f32 acceptance gates against tests/golden/4k.lj and
+   tests/golden/4k.eam with the reference's statistical criterion
+   (validate.compare_traces);
+5. the LJ main path at full width: Simulation.from_input on the benchmark
    deck inputs/in.lj.miniMD (131,072 atoms), run(200), with the kernels'
    launch counts taken over exactly that run and its step-100 row held
    against the reference's -s 32 smoke values; then -s 60 (864,000 atoms,
    100 steps) against tests/golden/864k.lj; timed runs (CUDA events,
    after a warm run) and each kernel timed against its plain version at
-   both sizes.
+   both sizes;
+6. the EAM main path at full width: inputs/in.eam.miniMD (131,072 Cu
+   atoms), run(100) with the EAM kernels' launches counted over exactly
+   that run and its step-0 row held against the golden step 0; then -s 60
+   (864,000 atoms) against tests/golden/864k.eam at steps 0 and 100; timed
+   runs and kernel timings as for LJ.
+
+Each kernel's bound is the least time the card could take for its work:
+the larger of its bytes (inputs read once, outputs written once) over
+3.35 TB/s and its FP32 operations on the in-cut pairs of the timed input
+over 67 TFLOP/s (an FMA counts 2, a compare, select, min, max, square
+root or divide 1), the published H100 SXM peaks. No single PyTorch call
+computes any of these functions, so library_ms is null.
 
 Prints a JSON line of kernels, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises: the exit code is then
 not 0 and no result line is printed.
 """
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -35,6 +54,11 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent
 
 F_TOL, ENG_TOL, VIR_TOL = 2e-5, 1e-5, 1e-4   # tests/test_lj_trace.py:314-316
+RHO_TOL = EMBED_TOL = 1e-5
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12      # H100 SXM: HBM3, FP32 (no TC)
+SHAPES = {"4k": (10, None, None), "131k": (32, None, None),
+          "864k": (60, None, None), "cap64": (10, None, 64),
+          "s6_nb2": (6, (2, 2, 2), None)}
 
 
 def phase(name, msg):
@@ -57,31 +81,108 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def lattice(s, nbins=None, capacity=None, seed=7):
-    """(deck, geometry, LJ parameters, f32 CUDA state, perturbed positions)
-    of the LJ deck at size s; every atom moved by ±0.12 per coordinate
-    (tests/test_cells.py:94-96), so a rebin has atoms to move."""
+@functools.lru_cache(maxsize=None)
+def _setup(deck, s):
+    from minimd_torch import create
+    from minimd_torch.config import builtin_deck
+
+    inp = builtin_deck(deck)
+    inp.nx = inp.ny = inp.nz = s
+    return inp, create.setup_system(inp)
+
+
+def lattice(s, nbins=None, capacity=None, seed=7, deck="lj", kick=0.12):
+    """(deck, geometry, f32 CUDA state, perturbed positions) of a shipped
+    deck at size s; every atom moved by ±kick per coordinate (the LJ
+    default is tests/test_cells.py:94-96's), so a rebin has atoms to
+    move. The EAM deck's geometry is built as the port builds it (solid)."""
     import numpy as np
     import torch
 
-    from minimd_tpu import create
-    from minimd_tpu.config import builtin_deck
     from minimd_torch import cells
-    from minimd_torch.ops.lj import LJParams
     from minimd_torch.state import init_state
 
-    inp = builtin_deck("lj")
-    inp.nx = inp.ny = inp.nz = s
-    prd, x, v, typ, _ = create.setup_system(inp)
+    inp, (prd, x, v, typ, _) = _setup(deck, s)
     geom = cells.build_geometry(prd, inp.neigh_cut, x, nbins=nbins,
-                                capacity=capacity)
+                                capacity=capacity, solid=deck == "eam")
     st = init_state(x, v, typ, geom, dtype=torch.float32, device="cuda")
     rng = np.random.default_rng(seed)
-    kick = torch.as_tensor(0.12 * np.sign(rng.normal(size=(3, geom.nslots))),
+    kick = torch.as_tensor(kick * np.sign(rng.normal(size=(3, geom.nslots))),
                            dtype=torch.float32, device="cuda")
     xp = st.x + kick * st.valid
-    params = LJParams.from_deck(1, inp.epsilon, inp.sigma, inp.force_cut)
-    return inp, geom, params, st, xp
+    return inp, geom, st, xp
+
+
+def rebinned(geom, st, xp):
+    from minimd_torch import cells
+
+    rebin = cells.rebin_local if min(geom.nb) >= 3 else cells.rebin_lean
+    return rebin(xp, st.v, st.typ, geom)[0]
+
+
+def lj_params(inp):
+    from minimd_torch.ops.lj import LJParams
+
+    return LJParams.from_deck(1, inp.epsilon, inp.sigma, inp.force_cut)
+
+
+def count_pairs(geom, x, cut, split=None):
+    """(pairs with r < cut, of them r < split): ordered full-neighbor
+    pairs of the positions, self excluded, on the plain grid."""
+    import torch
+
+    from minimd_torch.ops.pairgrid import (halo_extent, stencil_slice,
+                                           to_padded_soa)
+
+    h = halo_extent(geom)
+    Xp = to_padded_soa(x, geom, h)
+    Xi = [stencil_slice(g, (0, 0, 0), h, geom.nb)[..., :, None] for g in Xp]
+    n_cut = n_split = 0
+    for off in geom.stencil:
+        d = [Xi[k] - stencil_slice(Xp[k], off, h, geom.nb)[..., None, :]
+             for k in range(3)]
+        rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        if not off.any():
+            rsq += torch.eye(geom.capacity, device=x.device) * 1e30
+        n_cut += int((rsq < cut * cut).sum())
+        if split is not None:
+            n_split += int((rsq < split * split).sum())
+    return n_cut, n_split
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the two least times."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# FP32 operations per in-cut pair (see the module docstring): distance
+# (3 sub, 3 mul, 2 add) and the per-thread force sum (3 FMA)
+_DIST_OPS, _FSUM_OPS = 8, 6
+_LJ_PAIR_OPS = _DIST_OPS + 1 + 5 + 4 + _FSUM_OPS  # div, sr6, fc, sum
+
+
+def _poly_ops(polys, name, tail: bool):
+    """Operations of one pair function at one r: the body's u map and
+    Horner, or the tail's t map and Horner (+ row pick)."""
+    if not tail:
+        return 4 + 2 * (len(polys.body[name]) - 1)       # u: fma, 2 clamps
+    merged = polys.tail_merged[name]
+    if merged is not None:
+        return 3 + 2 * (len(merged) - 1)
+    return 6 + 2 * (len(polys.tail[name][0]) - 1)        # + floor, pick, sub
+
+
+def eam_pair_ops(polys, names, n_cut, n_body):
+    """Operations of one EAM pass over n_cut pairs, n_body of them with
+    r < split: distance, sqrt, the pair functions, and the pass's own
+    arithmetic (rho: 1 add; force: psi' 1 add + 1 FMA, force sum)."""
+    per = {tail: sum(_poly_ops(polys, nm, tail) for nm in names)
+           for tail in (False, True)}
+    own = 1 if names == ("R",) else 3 + _FSUM_OPS
+    base = _DIST_OPS + 1 + own
+    return (n_body * (base + per[False])
+            + (n_cut - n_body) * (base + per[True]))
 
 
 def compare_lj(label, geom, params, x, typ):
@@ -134,9 +235,62 @@ def compare_rebin(label, geom, st, xp):
     return 0.0
 
 
-def time_kernels(label, geom, params, st, xp, iters, plain_iters):
-    """(lj kernel ev, lj kernel noev, lj plain noev, pull kernel, pull
-    plain) in ms per call at one shape."""
+def compare_eam(label, geom, tables, x, typ):
+    """(max|drho|, max|df|) of the EAM kernels against their plain
+    versions; raises on any check that fails."""
+    import torch
+
+    from minimd_torch.cells import is_valid
+    from minimd_torch.ops import eam_cuda, eam_grid
+    from minimd_torch.ops.eam import spline_columns
+
+    k_rho = eam_cuda.make_eam_rho_cuda(geom, tables, device="cuda")
+    p_rho = eam_grid.make_eam_rho_grid(geom, tables, device="cuda")
+    rk, fpk, ek = k_rho(x, True)
+    rp, _, ep = p_rho(x, True)
+    frho = spline_columns(tables.frho_spline, torch.float32, "cuda")
+    fp_own, _ = eam_grid.embedding(rk, frho, 1.0 / tables.drho)
+    _, fpk_noev, ek_noev = k_rho(x, False)
+
+    k_ev, k_noev = eam_cuda.make_eam_force_cuda(
+        geom, tables, device="cuda")
+    p_ev, _ = eam_grid.make_eam_force_grid(geom, tables, device="cuda")
+    fk, engk, virk = k_ev(x, typ)
+    fn, engn, virn = k_noev(x, typ)
+    fpl, engp, virp = p_ev(x, typ)
+    torch.cuda.synchronize()
+
+    valid = is_valid(x)
+    rho_err = (rk - rp).abs().max().item()
+    rho_rel = rho_err / rp[valid].abs().max().item()
+    fp_same = torch.equal(fpk, fp_own) and torch.equal(fpk_noev, fp_own)
+    e_emb = abs(ek.item() - ep.item()) / abs(ep.item())
+    scale = fpl.abs().max().item()
+    err = (fk - fpl).abs().max().item()
+    err_noev = (fn - fpl).abs().max().item()
+    e_rel = abs(engk.item() - engp.item()) / abs(engp.item())
+    v_rel = abs(virk.item() - virp.item()) / abs(virp.item())
+    zeros = (ek_noev.item() == 0.0 and engn.item() == 0.0
+             and virn.item() == 0.0)
+    ok = (rho_rel <= RHO_TOL and fp_same and e_emb <= EMBED_TOL
+          and err / scale <= F_TOL and err_noev / scale <= F_TOL
+          and e_rel <= ENG_TOL and v_rel <= VIR_TOL and zeros
+          and bool(torch.isfinite(fk).all()))
+    phase("compare", f"eam {label} nb={geom.nb} C={geom.capacity}: "
+          f"rho max rel={rho_rel:.3e} fp bit-identical={fp_same} "
+          f"sumF rel={e_emb:.3e} max|df|/max|f| ev={err / scale:.3e} "
+          f"noev={err_noev / scale:.3e} eng_rel={e_rel:.3e} "
+          f"vir_rel={v_rel:.3e} noev zeros={zeros} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"EAM kernels disagree with their plain "
+                             f"versions at {label}")
+    return rho_err, err
+
+
+def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
+    """LJ and pull rebin kernels against their plain versions at one shape:
+    ms per call, and each kernel's bound from this input."""
     import torch
 
     from minimd_torch import cells
@@ -144,6 +298,7 @@ def time_kernels(label, geom, params, st, xp, iters, plain_iters):
     from minimd_torch.ops.lj_grid import make_lj_force_grid
     from minimd_torch.ops.rebin_cuda import make_rebin_cuda
 
+    params = lj_params(inp)
     x, _, typ, _ = cells.rebin_local(xp, st.v, st.typ, geom)
     k_ev, k_noev = make_lj_force_cuda(geom, params, torch.float32, "cuda")
     _, p_noev = make_lj_force_grid(geom, params, torch.float32, "cuda")
@@ -161,8 +316,52 @@ def time_kernels(label, geom, params, st, xp, iters, plain_iters):
     t["pull"] = cuda_ms(lambda: pull(cid, chans), iters)
     t["pull_plain"] = cuda_ms(lambda: cells.rebin_pull(cid, chans, geom),
                               plain_iters)
-    phase("kernel-time", f"{label} nb={geom.nb} C={geom.capacity}: " +
-          " ".join(f"{k}={v:.4f}ms" for k, v in t.items()))
+    M = geom.nslots
+    n_cut, _ = count_pairs(geom, x, inp.force_cut)
+    t["lj_bound"] = bound(24 * M, n_cut * _LJ_PAIR_OPS)
+    # cid + 7 channels in, 7 channels + counts + overflow out
+    t["pull_bound"] = bound(4 * (8 * M + 7 * M + geom.ncells + 1), 0)
+    phase("kernel-time", f"lj {label} nb={geom.nb} C={geom.capacity} "
+          f"pairs={n_cut}: " + " ".join(
+              f"{k}={v:.4f}ms" if isinstance(v, float) else
+              f"{k}={v[0]:.5f}ms({v[1]})" for k, v in t.items()))
+    return t
+
+
+def time_eam_kernels(label, inp, geom, st, xp, iters, plain_iters):
+    """The two EAM kernels (noev) against their plain versions at one
+    shape: ms per call, and each kernel's bound from this input."""
+    from minimd_torch.ops import eam_cuda, eam_grid
+    from minimd_torch.ops.eam import EAMTables
+
+    tables = EAMTables.from_funcfl()
+    x = rebinned(geom, st, xp)
+    k_rho = eam_cuda.make_eam_rho_cuda(geom, tables, device="cuda")
+    k_pair = eam_cuda.make_eam_pair_cuda(geom, tables, device="cuda")
+    p_rho = eam_grid.make_eam_rho_grid(geom, tables, device="cuda")
+    p_pair = eam_grid.make_eam_pair_grid(geom, tables, device="cuda")
+    _, fp, _ = k_rho(x, False)
+    t = {
+        "rho": cuda_ms(lambda: k_rho(x, False), iters),
+        "rho_ev": cuda_ms(lambda: k_rho(x, True), iters),
+        "force": cuda_ms(lambda: k_pair(x, fp, False), iters),
+        "force_ev": cuda_ms(lambda: k_pair(x, fp, True), iters),
+        "rho_plain": cuda_ms(lambda: p_rho(x, False), plain_iters),
+        "force_plain": cuda_ms(lambda: p_pair(x, fp, False), plain_iters),
+    }
+    polys = tables.polys
+    n_cut, n_body = count_pairs(geom, x, tables.cut, polys.split)
+    M = geom.nslots
+    embed_ops = 3 + 4 + 4            # p, m, pf; fp's two FMA
+    t["rho_bound"] = bound(4 * (3 * M + 2 * M),
+                           eam_pair_ops(polys, ("R",), n_cut, n_body)
+                           + embed_ops * M)
+    t["force_bound"] = bound(4 * (3 * M + M + 3 * M),
+                             eam_pair_ops(polys, ("G1", "G2"), n_cut, n_body))
+    phase("kernel-time", f"eam {label} nb={geom.nb} C={geom.capacity} "
+          f"pairs={n_cut} (r<split {n_body}): " + " ".join(
+              f"{k}={v:.4f}ms" if isinstance(v, float) else
+              f"{k}={v[0]:.5f}ms({v[1]})" for k, v in t.items()))
     return t
 
 
@@ -185,6 +384,7 @@ def main():
     import numpy as np
     import torch
 
+    wall0 = time.time()
     if not (REPO / "minimd_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
                          "repository (minimd_torch/ not found beside it)")
@@ -215,46 +415,58 @@ def main():
           + "; ".join(regs))
 
     from minimd_torch import cells
-    from minimd_torch.ops import lj_cuda, rebin_cuda
+    from minimd_torch.config import parse_deck
+    from minimd_torch.ops import eam_cuda, lj_cuda, rebin_cuda
+    from minimd_torch.ops.eam import EAMTables
     from minimd_torch.sim import Simulation
-    from minimd_tpu.config import parse_deck
-    from minimd_tpu.validate import compare_traces, parse_golden
+    from minimd_torch.validate import compare_traces, parse_golden
 
     # 3. kernels against their plain versions
-    max_err = {"lj": 0.0, "rebin": 0.0}
-    shapes = {"4k": (10, None, None), "131k": (32, None, None),
-              "864k": (60, None, None), "cap64": (10, None, 64),
-              "s6_nb2": (6, (2, 2, 2), None)}
-    for label, (s, nbins, cap) in shapes.items():
-        inp, geom, params, st, xp = lattice(s, nbins, cap)
+    max_err = {"lj": 0.0, "rebin": 0.0, "eam_rho": 0.0, "eam_force": 0.0}
+    for label, (s, nbins, cap) in SHAPES.items():
+        inp, geom, st, xp = lattice(s, nbins, cap)
         if min(geom.nb) >= 3:
             max_err["rebin"] = max(max_err["rebin"],
                                    compare_rebin(label, geom, st, xp))
-            x = cells.rebin_local(xp, st.v, st.typ, geom)[0]
-        else:
-            x = cells.rebin_lean(xp, st.v, st.typ, geom)[0]
-        max_err["lj"] = max(max_err["lj"],
-                            compare_lj(label, geom, params, x, st.typ))
+        x = rebinned(geom, st, xp)
+        max_err["lj"] = max(max_err["lj"], compare_lj(
+            label, geom, lj_params(inp), x, st.typ))
+    tables = EAMTables.from_funcfl()
+    for label, (s, nbins, cap) in SHAPES.items():
+        _, geom, st, xp = lattice(s, nbins, cap, deck="eam", kick=0.08)
+        e_rho, e_f = compare_eam(label, geom, tables,
+                                 rebinned(geom, st, xp), st.typ)
+        max_err["eam_rho"] = max(max_err["eam_rho"], e_rho)
+        max_err["eam_force"] = max(max_err["eam_force"], e_f)
+        torch.cuda.empty_cache()
 
-    # 4. the 4k/10000-step f32 acceptance gate
-    golden4k = parse_golden(REPO / "tests/golden/4k.lj")
-    inp = parse_deck(REPO / "inputs/in.lj.miniMD")
-    inp.nx = inp.ny = inp.nz = 10
-    lj_cuda.LAUNCHES = rebin_cuda.LAUNCHES = 0
-    t0 = time.time()
-    sim = Simulation.from_input(inp, device="cuda")
-    trace = sim.run(10000)
-    rows = sim.thermo_trace(trace)
-    res = compare_traces(rows, golden4k.rows, natoms=4000, system="lj",
-                         precision=4)
-    phase("gate-4k", f"10000 steps in {time.time() - t0:.1f}s: {res}; "
-          f"launches lj={lj_cuda.LAUNCHES} rebin={rebin_cuda.LAUNCHES} "
-          f"overflow={sim.state.overflow} last={rows[-1]}")
-    if not (res.passed and lj_cuda.LAUNCHES > 0 and rebin_cuda.LAUNCHES > 0
-            and sim.state.overflow == 0 and len(rows) == 101):
-        raise AssertionError("4k/10000 f32 acceptance gate failed")
+    # 4. the 4k/10000-step f32 acceptance gates
+    for deck, system in (("lj", "lj"), ("eam", "eam")):
+        golden4k = parse_golden(REPO / f"tests/golden/4k.{deck}")
+        inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
+        inp.nx = inp.ny = inp.nz = 10
+        lj_cuda.LAUNCHES = rebin_cuda.LAUNCHES = 0
+        eam_cuda.LAUNCHES.update(eam_rho=0, eam_force=0)
+        t0 = time.time()
+        sim = Simulation.from_input(inp, device="cuda")
+        trace = sim.run(10000)
+        rows = sim.thermo_trace(trace)
+        res = compare_traces(rows, golden4k.rows, natoms=4000,
+                             system=system, precision=4)
+        force_launches = (lj_cuda.LAUNCHES if deck == "lj" else
+                          min(eam_cuda.LAUNCHES.values()))
+        phase(f"gate-4k-{deck}", f"10000 steps in {time.time() - t0:.1f}s: "
+              f"{res}; launches lj={lj_cuda.LAUNCHES} "
+              f"eam={eam_cuda.LAUNCHES} rebin={rebin_cuda.LAUNCHES} "
+              f"overflow={sim.state.overflow} last={rows[-1]}")
+        if not (res.passed and force_launches > 0
+                and rebin_cuda.LAUNCHES > 0 and sim.state.overflow == 0
+                and len(rows) == 101):
+            raise AssertionError(f"4k/10000 f32 {deck} acceptance gate "
+                                 "failed")
 
-    # 5a. the main path at full width: the benchmark deck, counted launches
+    # 5a. the LJ main path at full width: the benchmark deck, counted
+    # launches
     inp = parse_deck(REPO / "inputs/in.lj.miniMD")
     lj_cuda.LAUNCHES = rebin_cuda.LAUNCHES = 0
     t0 = time.time()
@@ -281,8 +493,8 @@ def main():
     _, ms, rate = timed_run(sim, 200)
     phase("rate-131k", f"200 steps {ms:.1f}ms = {rate:.3f} Matom-steps/s "
           f"(overflow={sim.state.overflow})")
-    rates = {"131k": rate}
-    times = {"131k": time_kernels("131k", *lattice(32)[1:], 50, 5)}
+    rates = {"lj_131k": rate}
+    times = {"131k": time_kernels("131k", *lattice(32), 50, 5)}
 
     # 5b. 864,000 atoms against the golden trace
     golden864 = parse_golden(REPO / "tests/golden/864k.lj")
@@ -307,30 +519,111 @@ def main():
     peak = torch.cuda.max_memory_allocated() / 2**30
     phase("rate-864k", f"100 steps {ms:.1f}ms = {rate:.3f} Matom-steps/s "
           f"peak_mem={peak:.2f}GiB (overflow={sim.state.overflow})")
-    rates["864k"] = rate
+    rates["lj_864k"] = rate
     del sim
-    times["864k"] = time_kernels("864k", *lattice(60)[1:], 20, 3)
+    times["864k"] = time_kernels("864k", *lattice(60), 20, 3)
+
+    # 6a. the EAM main path at full width: the Cu deck, launches counted
+    # over exactly run(100)
+    golden_eam = parse_golden(REPO / "tests/golden/4k.eam").rows[0]
+    inp = parse_deck(REPO / "inputs/in.eam.miniMD")
+    t0 = time.time()
+    sim = Simulation.from_input(inp, device="cuda")
+    eam_cuda.LAUNCHES.update(eam_rho=0, eam_force=0)
+    trace = sim.run(100)
+    launches.update(eam_cuda.LAUNCHES)
+    rows = sim.thermo_trace(trace)
+    r0 = rows[0]
+    # T is the requested 600 K; U and P to the golden's printed digits
+    # (4k.eam and 864k.eam differ in P's 6th digit)
+    step0_ok = (abs(r0[1] - 600.0) <= 1e-4
+                and abs(r0[2] - golden_eam[2]) <= 1e-6 * abs(golden_eam[2])
+                and abs(r0[3] - golden_eam[3]) <= 2e-5 * abs(golden_eam[3]))
+    ok = (sim.natoms == 131072 and trace.shape == (100, 3)
+          and bool(np.isfinite(trace).all()) and sim.state.overflow == 0
+          and int(sim.state.valid.sum()) == sim.natoms and step0_ok
+          and [r[0] for r in rows] == [0, 100]
+          and launches["eam_rho"] > 0 and launches["eam_force"] > 0)
+    phase("main-eam-131k", f"natoms={sim.natoms} nb={sim.geom.nb} "
+          f"C={sim.geom.capacity} 100 steps in {time.time() - t0:.1f}s "
+          f"(setup included) launches={eam_cuda.LAUNCHES} "
+          f"overflow={sim.state.overflow} rows={rows} "
+          f"golden0={golden_eam} step0_ok={step0_ok}")
+    if not ok:
+        raise AssertionError("131k EAM main path failed its checks")
+    _, ms, rate = timed_run(sim, 100)
+    phase("rate-eam-131k", f"100 steps {ms:.1f}ms = {rate:.3f} "
+          f"Matom-steps/s (overflow={sim.state.overflow})")
+    rates["eam_131k"] = rate
+    del sim
+    eam_times = {"131k": time_eam_kernels(
+        "131k", *lattice(32, deck="eam", kick=0.08), 50, 3)}
+
+    # 6b. 864,000 Cu atoms against tests/golden/864k.eam
+    golden864 = parse_golden(REPO / "tests/golden/864k.eam")
+    inp = parse_deck(REPO / "inputs/in.eam.miniMD")
+    inp.nx = inp.ny = inp.nz = 60
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulation.from_input(inp, device="cuda")
+    trace = sim.run(100)
+    rows = sim.thermo_trace(trace)
+    res = compare_traces(rows, golden864.rows, natoms=864000, system="eam",
+                         precision=4)
+    g0, r0 = golden864.rows[0], rows[0]
+    step0_ok = (abs(r0[1] - g0[1]) <= 1e-4
+                and abs(r0[2] - g0[2]) <= 1e-6 * abs(g0[2])
+                and abs(r0[3] - g0[3]) <= 2e-5 * abs(g0[3]))
+    phase("check-eam-864k", f"nb={sim.geom.nb} C={sim.geom.capacity} "
+          f"rows={rows} golden={golden864.rows[:2]} {res} "
+          f"step0_ok={step0_ok} overflow={sim.state.overflow}")
+    if not (res.passed and res.nsteps == 2 and step0_ok
+            and sim.state.overflow == 0
+            and int(sim.state.valid.sum()) == 864000):
+        raise AssertionError("864k EAM run disagrees with "
+                             "tests/golden/864k.eam")
+    _, ms, rate = timed_run(sim, 100)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase("rate-eam-864k", f"100 steps {ms:.1f}ms = {rate:.3f} "
+          f"Matom-steps/s peak_mem={peak:.2f}GiB "
+          f"(overflow={sim.state.overflow})")
+    rates["eam_864k"] = rate
+    del sim
+    torch.cuda.empty_cache()
+    eam_times["864k"] = time_eam_kernels(
+        "864k", *lattice(60, deck="eam", kick=0.08), 20, 1)
+
+    def entry(name, source, replaces, launch, err, t, key, plain, bkey,
+              **extra):
+        b131, b864 = t["131k"][bkey], t["864k"][bkey]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, **extra, "launches": launch,
+                "max_abs_err": err, "ms": t["131k"][key],
+                "plain_ms": t["131k"][plain], "bound_ms": b131[0],
+                "bound_by": b131[1], "library_ms": None,
+                "shape": "131k noev", "ms_864k": t["864k"][key],
+                "plain_ms_864k": t["864k"][plain], "bound_ms_864k": b864[0],
+                "bound_by_864k": b864[1]}
 
     kernels = [
-        {"name": "lj_force", "route": "cuda",
-         "source": "minimd_torch/csrc/lj_force.cu",
-         "replaces": "minimd_tpu/ops/lj_pallas.py:69",
-         "launches": launches["lj"], "max_abs_err": max_err["lj"],
-         "ms": times["131k"]["lj_noev"],
-         "plain_ms": times["131k"]["lj_plain_noev"],
-         "shape": "131k noev", "ms_ev": times["131k"]["lj_ev"],
-         "ms_864k": times["864k"]["lj_noev"],
-         "plain_ms_864k": times["864k"]["lj_plain_noev"]},
-        {"name": "rebin_pull", "route": "cuda",
-         "source": "minimd_torch/csrc/rebin_pull.cu",
-         "replaces": "minimd_tpu/ops/rebin_pallas.py:217",
-         "also_replaces": "minimd_tpu/ops/rebin_pallas.py:49",
-         "launches": launches["rebin"], "max_abs_err": max_err["rebin"],
-         "ms": times["131k"]["pull"], "plain_ms": times["131k"]["pull_plain"],
-         "shape": "131k",
-         "ms_864k": times["864k"]["pull"],
-         "plain_ms_864k": times["864k"]["pull_plain"]},
+        entry("lj_force", "minimd_torch/csrc/lj_force.cu",
+              "minimd_tpu/ops/lj_pallas.py:69", launches["lj"],
+              max_err["lj"], times, "lj_noev", "lj_plain_noev", "lj_bound",
+              ms_ev=times["131k"]["lj_ev"]),
+        entry("rebin_pull", "minimd_torch/csrc/rebin_pull.cu",
+              "minimd_tpu/ops/rebin_pallas.py:217", launches["rebin"],
+              max_err["rebin"], times, "pull", "pull_plain", "pull_bound",
+              also_replaces="minimd_tpu/ops/rebin_pallas.py:49"),
+        entry("eam_rho", "minimd_torch/csrc/eam_force.cu",
+              "minimd_tpu/ops/eam_pallas.py:457", launches["eam_rho"],
+              max_err["eam_rho"], eam_times, "rho", "rho_plain", "rho_bound",
+              also_replaces="minimd_tpu/ops/eam_pallas.py:621",
+              ms_ev=eam_times["131k"]["rho_ev"]),
+        entry("eam_force", "minimd_torch/csrc/eam_force.cu",
+              "minimd_tpu/ops/eam_pallas.py:478", launches["eam_force"],
+              max_err["eam_force"], eam_times, "force", "force_plain",
+              "force_bound", ms_ev=eam_times["131k"]["force_ev"]),
     ]
+    phase("wall", f"chip_smoke.py {time.time() - wall0:.1f}s in all")
     print(json.dumps({"kernels": kernels, "matom_steps_per_s": rates}))
     print(card)
     print(json.dumps({"ok": True, "device": {

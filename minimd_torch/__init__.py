@@ -8,11 +8,12 @@ Public API:
     trace = sim.run()                    # (ntimes, 3) T/U/P per step
     rows = sim.thermo_trace(trace)       # thermo-cadence rows incl. step 0
 
-The package never imports jax. It shares the jax-free host modules of
-minimd_tpu (deck parser, units, setup, rng, native, validate, timer).
+The package imports neither jax nor the JAX package minimd_tpu: it keeps
+its own copies of the host modules it needs (config, units, create, rng,
+lammps_data, eam_file, validate, timer).
 """
 
-from minimd_tpu.config import In, builtin_deck, parse_deck  # noqa: F401
+from .config import In, builtin_deck, parse_deck  # noqa: F401
 
 __version__ = "0.1.0"
 

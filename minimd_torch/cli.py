@@ -1,12 +1,12 @@
-"""Command-line entry point of the PyTorch/CUDA port (the single-device LJ
-subset of minimd_tpu.cli, ref/ljs.cpp:61-504).
+"""Command-line entry point of the PyTorch/CUDA port (the single-device
+LJ and EAM subset of minimd_tpu.cli, ref/ljs.cpp:61-504).
 
     python -m minimd_torch -i inputs/in.lj.miniMD [-s N] [-n steps]
-        [--precision 1|2] [--device cuda|cpu]
+        [-p lj|eam] [--precision 1|2] [--device cuda|cpu]
 
-Deck and override precedence are minimd_tpu.cli.load_input's. Flags of the
-JAX CLI that the port does not have yet exit with an error naming the
-ROADMAP item.
+Deck and override precedence are minimd_tpu.cli.load_input's (copied
+here). Flags of the JAX CLI that the port does not have yet exit with an
+error naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from minimd_tpu.cli import load_input
-from minimd_tpu.config import FORCE_EAM, FORCE_LJ, UNITS_LJ
-from minimd_tpu.timer import TIME_TOTAL, Timer
+from .config import (FORCE_EAM, FORCE_LJ, UNITS_LJ, UNITS_METAL, In,
+                     builtin_deck, parse_deck)
+from .timer import TIME_TOTAL, Timer
 
 VARIANT_STRING = "miniMD-torch 0.1 (PyTorch/CUDA)"
 
@@ -25,7 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="minimd-torch",
         description=f"{VARIANT_STRING}: the PyTorch/CUDA port of miniMD-TPU "
-                    "(single device, LJ)")
+                    "(single device, LJ and EAM)")
     p.add_argument("-i", "--input_file", default=None,
                    help="input deck (default: in.lj.miniMD)")
     p.add_argument("-n", "--nsteps", type=int, default=-1)
@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(args, inp) -> str | None:
+def _unported(args) -> str | None:
     if args.devices > 1:
         return "--devices > 1 (ROADMAP queue 1 item 9)"
     if args.half_neigh == 1:
@@ -66,9 +66,30 @@ def _unported(args, inp) -> str | None:
         return "-o 1 (ROADMAP queue 1 item 7)"
     if args.profile:
         return "--profile (ROADMAP queue 1 item 7)"
-    if inp.forcetype == FORCE_EAM:
-        return "EAM (ROADMAP queue 1 item 6)"
     return None
+
+
+def load_input(args) -> In:
+    """Deck, then the command line's overrides (ljs.cpp:330-379)."""
+    if args.input_file:
+        inp = parse_deck(args.input_file)
+    else:
+        inp = builtin_deck("lj")
+    if args.nsteps > 0:
+        inp.ntimes = args.nsteps
+    if args.size > 0:
+        inp.nx = inp.ny = inp.nz = args.size
+    if args.nx > 0:
+        inp.nx = args.nx
+        inp.ny = args.ny if args.ny > 0 else (args.nx if args.size < 0 else inp.ny)
+        inp.nz = args.nz if args.nz > 0 else (args.nx if args.size < 0 else inp.nz)
+    if args.units:
+        inp.units = UNITS_LJ if args.units == "lj" else UNITS_METAL
+    if args.forcestyle:
+        inp.forcetype = FORCE_EAM if args.forcestyle == "eam" else FORCE_LJ
+    if args.data_file:
+        inp.datafile = args.data_file
+    return inp
 
 
 def banner(inp, sim, args):
@@ -101,10 +122,10 @@ def banner(inp, sim, args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    inp = load_input(args)
-    missing = _unported(args, inp)
+    missing = _unported(args)
     if missing:
         sys.exit(f"ERROR: {missing} is not ported to minimd_torch yet.")
+    inp = load_input(args)
 
     import torch
 

@@ -1,16 +1,18 @@
 """Simulation orchestrator: setup, cells, forces and thermo wired into the
 velocity-Verlet loop (the reference's Integrate::run + main setup
-sequence, ref/integrate.cpp:70-207 / ref/ljs.cpp:385-468), LJ only.
+sequence, ref/integrate.cpp:70-207 / ref/ljs.cpp:385-468), LJ and EAM.
 
 `run()` is a Python loop over steps that launches work on the device and
 never waits for it: the thermo trace and the rebin overflow counts stay
 in a device tensor until the one host sync at the end of the run.
 
-The device decides the path. On CUDA: the LJ kernel (ops/lj_cuda.py) and,
-when every axis has at least 3 cells, the pull rebin kernel
-(ops/rebin_cuda.py); smaller grids use the sort-based rebin_lean, the JAX
-package's own geometry rule. On the CPU: the plain versions
-(ops/lj_grid.py, cells.rebin_local / rebin_lean), in any dtype.
+The device decides the path. On CUDA: the LJ kernel (ops/lj_cuda.py) or
+the two EAM kernels (ops/eam_cuda.py) and, when every axis has at least 3
+cells, the pull rebin kernel (ops/rebin_cuda.py); smaller grids use the
+sort-based rebin_lean, the JAX package's own geometry rule. On the CPU:
+the plain LJ version (ops/lj_grid.py), the exact-spline EAM force
+(ops/eam.py, what the JAX package runs on its CPU) and cells.rebin_local /
+rebin_lean, in any dtype.
 """
 
 from __future__ import annotations
@@ -21,14 +23,13 @@ import functools
 import numpy as np
 import torch
 
-from minimd_tpu import create
-from minimd_tpu.config import FORCE_LJ, UNITS_METAL, In
-from minimd_tpu.units import ThermoScales, thermo_scales
-
-from . import cells, thermo
+from . import cells, create, thermo
+from .config import FORCE_EAM, FORCE_LJ, UNITS_METAL, In
+from .ops.eam import EAMTables
 from .ops.lj import LJParams
 from .ops.pairgrid import halo_extent
 from .state import MDState, init_state
+from .units import ThermoScales, thermo_scales
 
 
 def _not_yet(what: str, item: str):
@@ -47,7 +48,8 @@ class Simulation:
     dtforce: float            # 0.5*dt / mvv2e / mass (integrate.cpp:43,81)
     dtype: torch.dtype
     device: torch.device
-    params: LJParams
+    params: LJParams | None        # LJ decks
+    tables: EAMTables | None       # EAM decks
     force_fn: object = None        # (x, typ) -> (f, eng, virial), evflag on
     force_fn_noev: object = None   # same with eng = virial = 0
     rebin_fn: object = None        # (x, v, typ) -> (x, v, typ, overflow)
@@ -66,45 +68,80 @@ class Simulation:
     @staticmethod
     def from_input(inp: In, *, ntypes: int = 4, dtype=torch.float32,
                    device="cuda", nbins=None, capacity: int | None = None,
+                   potential_path: str | None = None,
                    half_neigh: bool = False,
                    fused_step: bool = False) -> "Simulation":
-        _refuse_unported(inp, half_neigh, fused_step)
-        prd, x_np, v_np, typ_np, mass = create.setup_system(inp, ntypes)
+        _refuse_unported(half_neigh, fused_step)
+        prd, x_np, v_np, typ_np, mass = create.setup_system(
+            inp, ntypes, potential_path)
         return Simulation.from_arrays(
             inp, prd, x_np, v_np, typ_np, mass, ntypes=ntypes, dtype=dtype,
-            device=device, nbins=nbins, capacity=capacity)
+            device=device, nbins=nbins, capacity=capacity,
+            potential_path=potential_path)
 
     @staticmethod
     def from_arrays(inp: In, prd, x_np, v_np, typ_np, mass: float, *,
                     ntypes: int | None = None, dtype=torch.float32,
                     device="cuda", nbins=None, capacity: int | None = None,
+                    potential_path: str | None = None,
                     half_neigh: bool = False,
                     fused_step: bool = False) -> "Simulation":
         """Build a Simulation from explicit, final state arrays (from_input
         reduces to this after setup). Velocities are taken as they are."""
-        _refuse_unported(inp, half_neigh, fused_step)
-        device = torch.device(device)
-        natoms = len(x_np)
-        if ntypes is None:
-            ntypes = int(np.max(typ_np)) + 1 if natoms else 1
-        params = LJParams.from_deck(ntypes, inp.epsilon, inp.sigma,
-                                    inp.force_cut)
+        _refuse_unported(half_neigh, fused_step)
+        # The shipped EAM decks are solid Cu (600 K start, cooling): vouch
+        # crystallinity so commensurate grids get lattice-tight capacity
+        # (cells.pick_capacity), as the JAX package does. Wrong vouches
+        # fail loudly via the rebin overflow counter.
+        solid = inp.forcetype == FORCE_EAM and inp.datafile is None
         geom = cells.build_geometry(prd, inp.neigh_cut, x_np, nbins=nbins,
-                                    capacity=capacity)
+                                    capacity=capacity, solid=solid)
+        state = init_state(x_np, v_np, typ_np, geom, dtype=dtype,
+                           device=device)
+        sim = Simulation.from_state(
+            inp, geom, state, mass, ntypes=ntypes, dtype=dtype, device=device,
+            potential_path=potential_path)
+        sim._user_nbins, sim._user_capacity = nbins, capacity
+        return sim
+
+    @staticmethod
+    def from_state(inp: In, geom: cells.CellGeometry, state: MDState,
+                   mass: float, *, ntypes: int | None = None,
+                   dtype=torch.float32, device="cuda",
+                   potential_path: str | None = None) -> "Simulation":
+        """Build a Simulation on a state already laid out in `geom`, e.g. one
+        carried across from the JAX package (state.state_from_reference,
+        state.geometry_from_reference). Forces are recomputed; the EAM
+        mass is the potential file's."""
+        device = torch.device(device)
+        valid = state.valid.cpu().numpy()
+        # atoms a capacity overflow dropped still count (grow-and-replay
+        # restores them)
+        natoms = int(valid.sum()) + state.overflow
+        if ntypes is None:
+            typ = state.typ.cpu().numpy()[valid]
+            ntypes = int(typ.max()) + 1 if natoms else 1
+        params = tables = None
+        if inp.forcetype == FORCE_LJ:
+            params = LJParams.from_deck(ntypes, inp.epsilon, inp.sigma,
+                                        inp.force_cut)
+        elif inp.forcetype == FORCE_EAM:
+            tables = EAMTables.from_funcfl(potential_path)
+            mass = tables.mass
+        else:
+            raise ValueError(f"unknown forcetype {inp.forcetype}")
         scales = thermo_scales(inp.units, natoms,
-                               float(np.prod(np.asarray(prd))))
+                               float(np.prod(np.asarray(geom.prd))))
         dtforce = 0.5 * inp.dt
         if inp.units == UNITS_METAL:
             dtforce /= scales.mvv2e
         dtforce /= mass
 
         sim = Simulation(
-            inp=inp, geom=geom, state=None, scales=scales, natoms=natoms,
+            inp=inp, geom=geom, state=state, scales=scales, natoms=natoms,
             mass=mass, dtforce=dtforce, dtype=dtype, device=device,
-            params=params, _user_nbins=nbins, _user_capacity=capacity)
+            params=params, tables=tables)
         sim._set_geometry(geom)
-        sim.state = init_state(x_np, v_np, typ_np, geom, dtype=dtype,
-                               device=device)
         sim._compute_initial_force()
         return sim
 
@@ -113,18 +150,30 @@ class Simulation:
         self.geom = geom
         cuda = self.device.type == "cuda"
         if cuda:
+            item = "queue 2 items 1, 3-4" if self.tables else "queue 2 item 1"
             if self.dtype != torch.float32:
-                raise _not_yet("a float64 CUDA run", "queue 2 item 1")
-            if not self.params.uniform:
-                raise _not_yet("per-type LJ tables on CUDA", "queue 2 item 1")
+                raise _not_yet("a float64 CUDA run", item)
             if halo_extent(geom) != 1:
                 raise _not_yet("a CUDA run with binsize < cutneigh (h > 1)",
-                               "queue 2 item 1")
-            from .ops.lj_cuda import make_lj_force_cuda as make_force
+                               item)
+        if self.tables is not None:
+            if cuda:
+                from .ops.eam_cuda import make_eam_force_cuda
+                self.force_fn, self.force_fn_noev = make_eam_force_cuda(
+                    geom, self.tables, self.dtype, self.device)
+            else:
+                from .ops.eam import make_eam_force
+                self.force_fn = self.force_fn_noev = make_eam_force(
+                    geom, self.tables, self.dtype, self.device)
         else:
-            from .ops.lj_grid import make_lj_force_grid as make_force
-        self.force_fn, self.force_fn_noev = make_force(
-            geom, self.params, self.dtype, self.device)
+            if cuda and not self.params.uniform:
+                raise _not_yet("per-type LJ tables on CUDA", "queue 2 item 1")
+            if cuda:
+                from .ops.lj_cuda import make_lj_force_cuda as make_force
+            else:
+                from .ops.lj_grid import make_lj_force_grid as make_force
+            self.force_fn, self.force_fn_noev = make_force(
+                geom, self.params, self.dtype, self.device)
         if min(geom.nb) < 3:
             # the +-1 pull would alias cells: sort-based placement
             self.rebin_fn = functools.partial(cells.rebin_lean, geom=geom)
@@ -222,16 +271,20 @@ class Simulation:
         xs = np.mod(s.x.cpu().numpy().T[valid], prd)  # fold unfolded coords
         vs = s.v.cpu().numpy().T[valid]
         ts = s.typ.cpu().numpy()[valid]
+        solid = (self.inp.forcetype == FORCE_EAM
+                 and self.inp.datafile is None)
         geom = None
         if (retune and self._user_nbins is None
                 and self._user_capacity is None and self._regrows < 3):
-            geom = cells.build_geometry(prd, self.inp.neigh_cut, xs)
+            geom = cells.build_geometry(prd, self.inp.neigh_cut, xs,
+                                        solid=solid)
             if (geom.nb == self.geom.nb
                     and geom.capacity <= self.geom.capacity):
                 geom = None   # autotune reproduced the overflowing layout
         if geom is None:
             geom = cells.build_geometry(prd, self.inp.neigh_cut, xs,
-                                        nbins=self.geom.nb, capacity=capacity)
+                                        nbins=self.geom.nb, capacity=capacity,
+                                        solid=solid)
         self._regrows += 1
         self._set_geometry(geom)
         self.state = init_state(xs, vs, ts, geom, dtype=self.dtype,
@@ -254,9 +307,7 @@ class Simulation:
         return rows
 
 
-def _refuse_unported(inp: In, half_neigh: bool, fused_step: bool):
-    if inp.forcetype != FORCE_LJ:
-        raise _not_yet("the EAM force", "queue 1 item 6, queue 2 items 3-5")
+def _refuse_unported(half_neigh: bool, fused_step: bool):
     if half_neigh:
         raise _not_yet("half_neigh", "queue 1 item 8")
     if fused_step:

@@ -66,6 +66,15 @@ def state_from_numpy(x, v, f, typ, valid, overflow, device="cpu",
                    overflow=int(np.asarray(overflow)))
 
 
+def state_from_reference(s, device="cpu", dtype=torch.float32) -> MDState:
+    """Carry a minimd_tpu MDState (its x, v, f, typ, valid and overflow
+    fields, read as numpy arrays) into the port, in the same geometry
+    (see geometry_from_reference); Simulation.from_state runs it."""
+    return state_from_numpy(*(np.asarray(getattr(s, k)) for k in
+                              ("x", "v", "f", "typ", "valid", "overflow")),
+                            device=device, dtype=dtype)
+
+
 def geometry_from_reference(g) -> CellGeometry:
     """Copy the fields of a minimd_tpu CellGeometry into the port's."""
     return CellGeometry(

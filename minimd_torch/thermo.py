@@ -1,18 +1,21 @@
 """Thermodynamic reductions: temperature, potential energy, pressure
-(ref/thermo.cpp:119-194). They compute on the tensors' device in the
-working dtype; empty slots carry zero velocity, and energy and virial come
-pre-reduced from the force kernels."""
+(ref/thermo.cpp:119-194). They compute on the tensors' device; empty slots
+carry zero velocity, and energy and virial come pre-reduced from the force
+kernels."""
 
 from __future__ import annotations
 
 import torch
 
-from minimd_tpu.units import ThermoScales
+from .units import ThermoScales
 
 
 def temperature(v: torch.Tensor, mass: float, scales: ThermoScales):
-    """t = sum(m * v^2) * t_scale (thermo.cpp:140-174)."""
-    return torch.sum(v * v) * mass * scales.t_scale
+    """t = sum(m * v^2) * t_scale (thermo.cpp:140-174). The sum and the
+    scaling are float64 in any working dtype: in float32 they would move
+    the requested temperature of a fresh system (600 K for the EAM deck)
+    by ~1e-7 relative, past the printed digits of a thermo row."""
+    return torch.sum(v * v, dtype=torch.float64) * (mass * scales.t_scale)
 
 
 def energy(eng_vdwl, natoms: int, scales: ThermoScales):

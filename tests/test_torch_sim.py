@@ -1,6 +1,6 @@
 """minimd_torch Simulation on the CPU: golden rows, the reference's
-statistical acceptance, the whole slice against minimd_tpu f64,
-grow-and-replay, the jax-free import and the CLI."""
+statistical acceptance, the whole LJ and EAM slices against minimd_tpu
+f64, grow-and-replay, the jax-free import and the CLI."""
 
 import os
 import pathlib
@@ -12,18 +12,20 @@ import numpy as np
 import pytest
 import torch
 
-from minimd_tpu.config import FORCE_EAM, builtin_deck
+from minimd_tpu import cells as jcells
+from minimd_tpu.config import builtin_deck
 from minimd_tpu.validate import compare_traces, parse_golden
-from minimd_torch import cli
+from minimd_torch import cli, create
 from minimd_torch.sim import Simulation
+from minimd_torch.state import geometry_from_reference, state_from_reference
 
 torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
-def _deck(s):
-    inp = builtin_deck("lj")
+def _deck(s, name="lj"):
+    inp = builtin_deck(name)
     inp.nx = inp.ny = inp.nz = s
     return inp
 
@@ -102,21 +104,63 @@ def test_grow_and_replay_keeps_every_atom():
     np.testing.assert_allclose(sim._row0, ref._row0, rtol=1e-12)
 
 
+def test_eam_step0_golden(golden_dir):
+    """The 4k EAM f64 step-0 row, bounds of tests/test_eam.py:52-58."""
+    sim = Simulation.from_input(_deck(10, "eam"), dtype=torch.float64,
+                                device="cpu")
+    g = parse_golden(golden_dir / "4k.eam").rows[0]
+    step, t, u, p = sim._row0
+    assert step == g[0] == 0 and sim.natoms == 4000
+    assert abs(t - g[1]) < 1e-4
+    assert abs(u - g[2]) / abs(g[2]) < 1e-6
+    assert abs(p - g[3]) / abs(g[3]) < 1e-5
+    assert sim.mass == 63.55 and sim.state.overflow == 0
+
+
+def test_eam_slice_matches_jax_f64():
+    """s=6 EAM, 40 f64 steps (two reneighbors, the pull rebin on a 3x3x3
+    grid) from the JAX package's own state carried across: thermo rows,
+    positions and velocities within 1e-9 of minimd_tpu."""
+    from minimd_tpu.sim import Simulation as JaxSimulation
+
+    js = JaxSimulation.from_input(_deck(6, "eam"), dtype=jnp.float64)
+    ts = Simulation.from_state(
+        _deck(6, "eam"), geometry_from_reference(js.geom),
+        state_from_reference(js.state, dtype=torch.float64), js.mass,
+        dtype=torch.float64, device="cpu")
+    assert ts.geom.nb == (3, 3, 3) and ts.natoms == js.natoms == 864
+    assert ts.mass == js.mass
+    np.testing.assert_allclose(ts._row0, js._row0, rtol=1e-12)
+    jt, tt = js.run(40), ts.run(40)
+    assert ts.state.overflow == 0
+    valid = np.asarray(js.state.valid)
+    np.testing.assert_array_equal(valid, ts.state.valid.numpy())
+    for name in ("x", "v"):
+        a = np.asarray(getattr(js.state, name))[:, valid]
+        b = getattr(ts.state, name).numpy()[:, valid]
+        assert np.abs(a - b).max() < 1e-9, name
+    jr, tr = js.thermo_trace(jt), ts.thermo_trace(tt)
+    assert [r[0] for r in tr] == [r[0] for r in jr] == [0, 40]
+    np.testing.assert_allclose(np.array(tr), np.array(jr), rtol=1e-9)
+
+
 SUBPROCESS_JAX_BLOCKED = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["minimd_tpu"] = None   # and so does any of the JAX package
 import torch
 torch.set_num_threads(2)
 import minimd_torch
 from minimd_torch.sim import Simulation
-inp = minimd_torch.builtin_deck("lj")
-inp.nx = inp.ny = inp.nz = 6
-sim = Simulation.from_input(inp, dtype=torch.float32, device="cpu")
-trace = sim.run(20)
-assert trace.shape == (20, 3) and sim.state.overflow == 0
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
-print("ROW", *sim.thermo_trace(trace)[-1])
+for deck in ("lj", "eam"):
+    inp = minimd_torch.builtin_deck(deck)
+    inp.nx = inp.ny = inp.nz = 6
+    sim = Simulation.from_input(inp, dtype=torch.float32, device="cpu")
+    trace = sim.run(20)
+    assert trace.shape == (20, 3) and sim.state.overflow == 0
+    print("ROW", deck, *sim.thermo_trace(trace)[-1])
+assert not any(m == "jax" or m.startswith(("jax.", "minimd_tpu"))
+               for m in sys.modules if sys.modules[m] is not None)
 """
 
 
@@ -129,8 +173,11 @@ def _run(args):
 def test_package_is_jax_free():
     res = _run(["-c", SUBPROCESS_JAX_BLOCKED])
     assert res.returncode == 0, res.stderr
-    row = res.stdout.split("ROW")[1].split()
-    assert row[0] == "20" and all(np.isfinite(float(v)) for v in row[1:])
+    rows = [ln.split()[1:] for ln in res.stdout.splitlines()
+            if ln.startswith("ROW")]
+    assert [r[0] for r in rows] == ["lj", "eam"]
+    for row in rows:
+        assert row[1] == "20" and all(np.isfinite(float(v)) for v in row[2:])
 
 
 def test_cli_module_runs(golden_dir):
@@ -146,9 +193,19 @@ def test_cli_module_runs(golden_dir):
     assert len(perf) == 1 and perf[0].split()[2:4] == ["20", "864"]
 
 
+def test_cli_runs_eam_deck(capsys):
+    cli.main(["-i", str(REPO / "inputs/in.eam.miniMD"), "-s", "6", "-n",
+              "20", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert "\t# ForceStyle: EAM" in lines and "\t# Units: METAL" in lines
+    i = lines.index("# Timestep T U P Time")
+    assert lines[i + 1].startswith("0 6.000000e+02")
+    assert lines[i + 2].split()[0] == "20"
+
+
 @pytest.mark.parametrize("argv", [["--devices", "2"], ["--half_neigh", "1"],
                                   ["--timed"], ["-o", "1"],
-                                  ["--profile", "trace"], ["-p", "eam"]])
+                                  ["--profile", "trace"]])
 def test_cli_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["-s", "6", "--device", "cpu", *argv])
@@ -156,13 +213,22 @@ def test_cli_refuses_unported_flags(argv, capsys):
     assert "ROADMAP" in str(exc.value.code)
 
 
-@pytest.mark.parametrize("what", ["eam", "half_neigh", "fused_step"])
+def test_from_input_builds_eam_deck():
+    """The EAM deck on the CPU: Cu mass and metal units from the deck and
+    the potential file, the JAX package's solid-vouched geometry."""
+    inp = _deck(6, "eam")
+    sim = Simulation.from_input(inp, device="cpu")
+    assert sim.tables is not None and sim.params is None
+    assert sim.natoms == 864 and sim.mass == 63.55
+    prd, x, _, _, _ = create.setup_system(inp)
+    want = jcells.build_geometry(prd, inp.neigh_cut, x, solid=True)
+    assert (sim.geom.nb, sim.geom.capacity) == (want.nb, want.capacity)
+    liquid = jcells.build_geometry(prd, inp.neigh_cut, x)
+    assert liquid.capacity > want.capacity == 40
+    assert abs(sim._row0[1] - 600.0) < 1e-3
+
+
+@pytest.mark.parametrize("what", ["half_neigh", "fused_step"])
 def test_from_input_refuses_unported(what):
-    inp = _deck(6)
-    kw = {}
-    if what == "eam":
-        inp.forcetype = FORCE_EAM
-    else:
-        kw[what] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation.from_input(inp, device="cpu", **kw)
+        Simulation.from_input(_deck(6), device="cpu", **{what: True})
