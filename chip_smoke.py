@@ -40,18 +40,36 @@ Run from the root of a checkout. Phases, one line each:
    once with the polynomial kernels (the default) and once through the
    gather-table kernels (the Simulation's force closures set to
    ops/eam_rows_cuda.py's; no regrow may undo that); timed runs and
-   kernel timings as for LJ.
+   kernel timings as for LJ;
+7. the micro-probes (minimd_torch/micro.py): fma_chain and copy_add
+   against their plain versions, then their own main path, the
+   exp_micro.py timing loop at the TPU's rep counts, with launches counted
+   over exactly that run: GFMA/s and GB/s with their shares of 33.5
+   TFMA/s and 3.35 TB/s, the copy slope again on a 256 MB array, and
+   copy_add per sweep beside torch.add(x, 1.0, out=y);
+8. the half-neighbor paths (Simulation(half_neigh=True)): the 4k gates
+   (LJ gn=1, LJ gn=0, EAM; HALF_GATE_STEPS steps) against the goldens,
+   and 131k runs of each with step 0 and step 100 held against the full
+   path's rows, every atom kept, the rate, peak memory and time per force;
+9. the CLI at 131k: `--timed -o 1` on the LJ deck and `--timed` on the
+   EAM deck, t_force and t_neigh above 0, the YAML's lost_atoms: 0, rows
+   equal to run()'s;
+10. checkpoint at 131k: save after 100 steps, resume, 100 more, against
+   the uninterrupted run.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (inputs read once, outputs written once) over
-3.35 TB/s and its FP32 operations on the in-cut pairs of the timed input
-over 67 TFLOP/s (an FMA counts 2, a compare, select, min, max, square
-root, conversion or divide 1), the published H100 SXM peaks. No single
-PyTorch call computes any of these functions, so library_ms is null.
+3.35 TB/s and its FP32 operations (for the pair kernels on the in-cut
+pairs of the timed input) over 67 TFLOP/s (an FMA counts 2, a compare,
+select, min, max, square root, conversion or divide 1), the published
+H100 SXM peaks. No single PyTorch call computes any of the pair, rebin or
+FMA-chain functions, so their library_ms is null; copy_add's is
+torch.add(x, 1.0, out=y).
 
-Prints a JSON line of the 7 ported kernels and the rates, the card line,
-and last {"ok": true, "device": {...}}. Any failure raises: the exit code
-is then not 0 and no result line is printed.
+Prints a JSON line of the 9 ported kernels, the rates, the probes' pins
+and the half paths' numbers, the card line, and last {"ok": true,
+"device": {...}}. Any failure raises: the exit code is then not 0 and no
+result line is printed.
 """
 
 import functools
@@ -69,6 +87,27 @@ RHO_TOL = EMBED_TOL = 1e-5
 # (tests/test_lj_trace.py:586-598)
 X_TOL, W_TOL, VSQ_TOL = 1e-6, 1e-5, 1e-5
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12      # H100 SXM: HBM3, FP32 (no TC)
+# the FMA chain after 48 and 480 links (reps 2, 20): the kernel rounds once
+# per link, the plain version twice, ~1 ulp of values near 1 per link
+FMA_ATOL = {2: 1e-5, 20: 1e-4}
+# the half path against the full path at 131k, f32, relative: step 0 sums
+# the same pairs in another order (T is the same sum), and for EAM the
+# full path's pair functions are the kernels' fitted polynomials where the
+# half path evaluates the exact splines; step 100 comes after 100 steps of
+# two f32 trajectories (|P| < 1 is held absolutely)
+HALF_STEP0_RTOL = {"lj": 2e-5, "eam": 1e-4}
+HALF_STEPN_RTOL = 1e-3
+# a resumed f32 run against the uninterrupted one after 100 steps: the
+# checkpoint folds positions into the box and lays the cells out anew, so
+# the force sums run in another order
+CHECKPOINT_RTOL = 1e-3
+# the 4k half-path gates' length: 10,000 steps, as the other gates run.
+# They take ~190 s of the three on an H100 (the half path is plain torch,
+# ~170 launches per LJ step), but 2,000 steps are too few for the
+# criterion: its tolerance is tight before step 700 (a ramp), so a short
+# f32 run fails on those rows alone (the LJ half gate read T 0.381, E
+# 0.429, P 0.381 of 21 rows at 2,000 steps and passed at 10,000; PERF.md)
+HALF_GATE_STEPS = 10000
 SHAPES = {"4k": (10, None, None), "131k": (32, None, None),
           "864k": (60, None, None), "cap64": (10, None, 64),
           "s6_nb2": (6, (2, 2, 2), None)}
@@ -232,20 +271,22 @@ def rows_pair_ops(names, n_cut):
 
 def counters():
     """Every kernel's launch count, by kernel name."""
+    from minimd_torch import micro
     from minimd_torch.ops import (eam_cuda, eam_rows_cuda, lj_cuda,
                                   lj_step_cuda, rebin_cuda)
 
     return {"lj_force": lj_cuda.LAUNCHES, "rebin_pull": rebin_cuda.LAUNCHES,
             **eam_cuda.LAUNCHES, "lj_step": lj_step_cuda.LAUNCHES,
-            **eam_rows_cuda.LAUNCHES}
+            **eam_rows_cuda.LAUNCHES, **micro.LAUNCHES}
 
 
 def reset_counters():
+    from minimd_torch import micro
     from minimd_torch.ops import (eam_cuda, eam_rows_cuda, lj_cuda,
                                   lj_step_cuda, rebin_cuda)
 
     lj_cuda.LAUNCHES = rebin_cuda.LAUNCHES = lj_step_cuda.LAUNCHES = 0
-    for d in (eam_cuda.LAUNCHES, eam_rows_cuda.LAUNCHES):
+    for d in (eam_cuda.LAUNCHES, eam_rows_cuda.LAUNCHES, micro.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -704,6 +745,219 @@ def rates_in_turns(label, sims, steps):
     return got
 
 
+def micro_phase():
+    """The FMA and copy probes (minimd_torch/micro.py, csrc/micro.cu):
+    both kernels against their plain versions; then the probes' own main
+    path, exp_micro.py's timing loop at the TPU's rep counts, with the launches
+    counted over exactly that run; the copy slope again on a 256 MB array,
+    4x the L2 less likely to hold it; kernel, plain and torch.add times.
+    Returns (kernels' JSON rows, pins)."""
+    import torch
+
+    from minimd_torch import micro
+
+    xf, xc = micro.probe_inputs("cuda")
+    err = {}
+    for reps, tol in FMA_ATOL.items():
+        err[reps] = (micro.fma_chain(xf, reps)
+                     - micro.fma_chain_plain(xf, reps)).abs().max().item()
+    same = torch.equal(micro.copy_add(xc, 2), micro.copy_add_plain(xc, 2))
+    torch.cuda.synchronize()
+    ok = same and all(err[r] <= tol for r, tol in FMA_ATOL.items())
+    phase("compare", "fma_chain (16384, 128) " + " ".join(
+        f"reps={r}: max|dy|={e:.3e} (tol {FMA_ATOL[r]:g})"
+        for r, e in err.items()) + f"; copy_add (131072, 128) reps=2 "
+        f"bit-identical={same} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a micro-probe kernel disagrees with its plain "
+                             "version")
+
+    reset_counters()
+    pins = micro.measure("cuda")       # prints exp_micro.py's two lines
+    launches = {k: n for k, n in counters().items() if n}
+    big = torch.rand((4 * micro.CB * micro.SUB, micro.LANE), device="cuda")
+    s_big = micro.slope(micro.copy_add, 100, 400, big)
+    pins["copy_gbps_256mb"] = 2 * big.numel() * 4 / s_big / 1e9
+    del big
+    want = {"fma_chain": 12, "copy_add": 12}
+    phase("micro", f"fma {pins['fma_us_per_rep']:.3f} us/rep = "
+          f"{pins['fma_gops']:.1f} GFMA/s ({pins['fma_peak_share']:.4f} of "
+          f"33.5 TFMA/s); copy {pins['copy_us_per_rep']:.3f} us/rep = "
+          f"{pins['copy_gbps']:.1f} GB/s ({pins['copy_peak_share']:.4f} of "
+          f"3.35 TB/s), 256 MB array {pins['copy_gbps_256mb']:.1f} GB/s; "
+          f"launches={launches}")
+    if not (launches == want and pins["fma_peak_share"] < 1.0
+            and 0 < pins["copy_gbps"] and 0 < pins["fma_gops"]):
+        raise AssertionError(f"micro: launches {launches} != {want} or a "
+                             "rate out of range")
+
+    n, nc = xf.numel(), xc.numel()
+    y = torch.empty_like(xc)
+    t = {"fma": cuda_ms(lambda: micro.fma_chain(xf, 100), 20),
+         "fma_plain": cuda_ms(lambda: micro.fma_chain_plain(xf, 100), 2),
+         "copy": cuda_ms(lambda: micro.copy_add(xc, 1), 50),
+         "copy_plain": cuda_ms(lambda: micro.copy_add_plain(xc, 1), 50),
+         "copy_library": cuda_ms(lambda: torch.add(xc, 1.0, out=y), 50)}
+    # an FMA counts 2 operations; one add per element of the sweep
+    t["fma_bound"] = bound(8 * n, 2 * micro.DEPTH * 100 * n)
+    t["copy_bound"] = bound(8 * nc, nc)
+    phase("kernel-time", "micro fma_chain reps=100, copy_add one sweep: "
+          + " ".join(f"{k}={v:.4f}ms" if isinstance(v, float) else
+                     f"{k}={v[0]:.5f}ms({v[1]})" for k, v in t.items()))
+    rows = [
+        {"name": "fma_chain", "route": "cuda",
+         "source": "minimd_torch/csrc/micro.cu",
+         "replaces": "scripts/exp_micro.py:61",
+         "launches": launches["fma_chain"], "max_abs_err": max(err.values()),
+         "ms": t["fma"], "plain_ms": t["fma_plain"],
+         "bound_ms": t["fma_bound"][0], "bound_by": t["fma_bound"][1],
+         "library_ms": None, "shape": "(16384, 128) f32, reps=100"},
+        {"name": "copy_add", "route": "cuda",
+         "source": "minimd_torch/csrc/micro.cu",
+         "replaces": "scripts/exp_micro.py:84",
+         "launches": launches["copy_add"], "max_abs_err": 0.0,
+         "ms": t["copy"], "plain_ms": t["copy_plain"],
+         "bound_ms": t["copy_bound"][0], "bound_by": t["copy_bound"][1],
+         "library_ms": t["copy_library"],
+         "shape": "(131072, 128) f32, one sweep"},
+    ]
+    return rows, pins
+
+
+def _row_close(got, want, floor=0.0):
+    """Largest |got - want| / max(|want|, floor) over T, U, P."""
+    return max(abs(g - w) / max(abs(w), floor)
+               for g, w in zip(got[1:], want[1:]))
+
+
+def half_path(label, deck, gn, full_rows, steps=100):
+    """The half-neighbor path at full width on a shipped deck: run(steps)
+    with the launches counted, step 0 and the last row held against the
+    full path's rows from the same start, atoms kept, the rate, peak
+    memory and the time per force. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from minimd_torch.config import parse_deck
+    from minimd_torch.output import lost_atom_check
+    from minimd_torch.sim import Simulation
+
+    inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim = Simulation.from_input(inp, device="cuda", half_neigh=True,
+                                ghost_newton=gn)
+    reset_counters()
+    trace = sim.run(steps)
+    launches = {k: n for k, n in counters().items() if n}
+    wall = time.time() - t0
+    rows = sim.thermo_trace(trace)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lost = lost_atom_check(sim)
+    x, typ = sim.state.x, sim.state.typ
+    f_ms = cuda_ms(lambda: sim.force_fn_noev(x, typ), 5)
+    f_ev_ms = cuda_ms(lambda: sim.force_fn(x, typ), 5)
+    _, ms, rate = timed_run(sim, steps)
+    d0 = _row_close(rows[0], full_rows[0])
+    d1 = _row_close(rows[1], full_rows[1], floor=1.0)
+    want = {"rebin_pull": steps // inp.neigh_every}
+    ok = (d0 <= HALF_STEP0_RTOL[deck] and d1 <= HALF_STEPN_RTOL
+          and rows[0][1] == full_rows[0][1] and launches == want
+          and [r[0] for r in rows] == [0, steps] == [r[0] for r in
+                                                     full_rows[:2]]
+          and sim.state.overflow == 0 and sim._regrows == 0 and lost == 0
+          and bool(np.isfinite(trace).all()))
+    phase(label, f"natoms={sim.natoms} nb={sim.geom.nb} C={sim.geom.capacity}"
+          f" gn={int(gn)} {steps} steps in {wall:.1f}s (setup included) "
+          f"rows={rows} full={full_rows[:2]} step0 max rel={d0:.3e} (tol "
+          f"{HALF_STEP0_RTOL[deck]:g}) step{steps} max rel={d1:.3e} (tol "
+          f"{HALF_STEPN_RTOL:g}) launches={launches} overflow="
+          f"{sim.state.overflow} lost={lost}; force {f_ms:.3f}ms (ev "
+          f"{f_ev_ms:.3f}ms); run({steps}) {ms:.1f}ms = {rate:.3f} "
+          f"Matom-steps/s; peak {peak:.2f}GiB -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the half path failed its checks")
+    return {"rate": rate, "force_ms": f_ms, "force_ev_ms": f_ev_ms,
+            "peak_gib": peak}
+
+
+def cli_phase(label, deck, argv, workdir):
+    """cli.main on a shipped deck at full width (in workdir, where the YAML
+    goes): PERF_SUMMARY's t_force and t_neigh above 0, the YAML's
+    lost_atoms: 0, and the rows equal to run()'s on the same deck."""
+    import contextlib
+    import io
+    import os
+
+    from minimd_torch import cli
+    from minimd_torch.config import parse_deck
+    from minimd_torch.sim import Simulation
+
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        reset_counters()
+        with contextlib.redirect_stdout(buf):
+            sim, rows = cli.main(["-i", str(REPO / f"inputs/in.{deck}.miniMD"),
+                                  *argv])
+        launches = {k: n for k, n in counters().items() if n}
+    finally:
+        os.chdir(cwd)
+    out = buf.getvalue().splitlines()
+    perf = next(ln for ln in out if "PERF_SUMMARY" in ln
+                and not ln.startswith("#")).split()
+    t_total, t_force, t_neigh = (float(v) for v in perf[4:7])
+    yaml_ok = True
+    if "-o" in argv:
+        path = next(ln for ln in out if ln.startswith("# YAML report: "))
+        text = (pathlib.Path(workdir) / path.split(": ", 1)[1]).read_text()
+        yaml_ok = "lost_atoms: 0" in text.splitlines()
+    ref = Simulation.from_input(parse_deck(REPO / f"inputs/in.{deck}.miniMD"),
+                                device="cuda")
+    ref_rows = ref.thermo_trace(ref.run())
+    same = rows == ref_rows
+    ok = (t_force > 0 and t_neigh > 0 and yaml_ok and same
+          and "# WARNING" not in buf.getvalue())
+    phase(label, f"{' '.join(argv)}: t_total={t_total:.4f}s "
+          f"t_force={t_force:.4f}s t_neigh={t_neigh:.4f}s yaml lost_atoms 0="
+          f"{yaml_ok} rows={rows} equal to run()'s={same} "
+          f"launches={launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the CLI run failed its checks")
+    return launches
+
+
+def checkpoint_phase(workdir, steps=100):
+    """Save the LJ deck at 131k after `steps`, resume it, run `steps` more
+    and hold the rows against the uninterrupted run's
+    (tests/test_checkpoint.py:11-31, in f32)."""
+    from minimd_torch import checkpoint
+    from minimd_torch.config import parse_deck
+    from minimd_torch.sim import Simulation
+
+    inp = parse_deck(REPO / "inputs/in.lj.miniMD")
+    sim = Simulation.from_input(inp, device="cuda")
+    sim.run(steps)
+    path = pathlib.Path(workdir) / "ck.npz"
+    checkpoint.save(path, sim, step=steps)
+    orig = sim.thermo_trace(sim.run(steps))
+    res, step = checkpoint.resume(path, device="cuda")
+    rows = res.thermo_trace(res.run(steps))
+    d = _row_close(rows[1], orig[1], floor=1.0)
+    ok = (step == steps and rows[0] == orig[0] and res.natoms == sim.natoms
+          and d <= CHECKPOINT_RTOL and res.state.overflow == 0
+          and int(res.state.valid.sum()) == res.natoms)
+    phase("checkpoint-131k", f"saved at step {step} ({path.stat().st_size} "
+          f"bytes), resumed {steps} steps: rows={rows} uninterrupted="
+          f"{orig} max rel={d:.3e} (tol {CHECKPOINT_RTOL:g}) provenance "
+          f"kept={rows[0] == orig[0]} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("checkpoint-131k: the resumed run failed its "
+                             "checks")
+
+
 def main():
     import numpy as np
     import torch
@@ -780,27 +1034,32 @@ def main():
 
     # 4. the 4k/10000-step f32 acceptance gates: each deck on its default
     # path, LJ through the fused step, EAM through the gather tables
-    def gate(deck, label, need, fused=False, rows=False):
+    def gate(deck, label, need, fused=False, rows=False, half=False,
+             gn=True, steps=10000):
         golden4k = parse_golden(REPO / f"tests/golden/4k.{deck}")
         inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
         inp.nx = inp.ny = inp.nz = 10
         t0 = time.time()
-        sim = Simulation.from_input(inp, device="cuda", fused_step=fused)
+        sim = Simulation.from_input(inp, device="cuda", fused_step=fused,
+                                    half_neigh=half, ghost_newton=gn)
         if rows:
             through_rows(sim)
         reset_counters()
-        trace = sim.run(10000)
+        trace = sim.run(steps)
         launches = counters()
         rows_ = sim.thermo_trace(trace)
         res = compare_traces(rows_, golden4k.rows, natoms=4000, system=deck,
                              precision=4)
-        phase(f"gate-4k-{label}", f"10000 steps in {time.time() - t0:.1f}s: "
-              f"{res}; launches={launches} overflow={sim.state.overflow} "
+        phase(f"gate-4k-{label}", f"{steps} steps in {time.time() - t0:.1f}s:"
+              f" {res}; launches={launches} overflow={sim.state.overflow} "
               f"regrows={sim._regrows} last={rows_[-1]}")
+        # the half path runs no force kernel: only the pull rebin
+        others = [k for k, n in launches.items() if n and k not in need]
         if not (res.passed and all(launches[k] > 0 for k in need)
+                and not (half and others)
                 and sim.state.overflow == 0 and sim._regrows == 0
-                and len(rows_) == 101):
-            raise AssertionError(f"4k/10000 f32 {label} acceptance gate "
+                and len(rows_) == steps // 100 + 1):
+            raise AssertionError(f"4k/{steps} f32 {label} acceptance gate "
                                  "failed")
 
     gate("lj", "lj", ("lj_force", "rebin_pull"))
@@ -808,6 +1067,12 @@ def main():
     gate("lj", "lj-fused", ("lj_step", "lj_force", "rebin_pull"), fused=True)
     gate("eam", "eam-rows", ("eam_rho_rows", "eam_force_rows", "rebin_pull"),
          rows=True)
+    # the half-neighbor paths (plain torch forces, the pull rebin kernel)
+    for deck, label, gn in (("lj", "lj-half", True),
+                            ("lj", "lj-half-gn0", False),
+                            ("eam", "eam-half", True)):
+        gate(deck, label, ("rebin_pull",), half=True, gn=gn,
+             steps=HALF_GATE_STEPS)
 
     def main_path(label, inp, steps, fused=False, rows=False):
         """Simulation.from_input on the deck, counters set to 0 after
@@ -855,6 +1120,8 @@ def main():
                                  f"{got} != {want[label]}")
         sims["fused" if fused else "plain"] = sim
         path[label] = got
+        if not fused:
+            full_rows = {"lj": rows}
     rates = {}
     for name, got in rates_in_turns("131k", sims, 200).items():
         rates[f"lj{'_fused' if name == 'fused' else ''}_131k"] = got
@@ -914,6 +1181,8 @@ def main():
                                  f"!= {need}")
         sims["rows" if rows_on else "poly"] = sim
         path[label] = got
+        if not rows_on:
+            full_rows["eam"] = rows
     for name, got in rates_in_turns("eam-131k", sims, 100).items():
         rates[f"eam{'_rows' if name == 'rows' else ''}_131k"] = got
     for name, sim in sims.items():
@@ -954,6 +1223,22 @@ def main():
     eam_times["864k"] = time_eam_kernels(
         "864k", *lattice(60, deck="eam", kick=0.08), 20, 1)
 
+    # 7. the micro-probes; 8. the half-neighbor paths at full width;
+    # 9. the CLI's timed run and YAML report; 10. checkpoint and resume
+    micro_rows, pins = micro_phase()
+    torch.cuda.empty_cache()
+    half = {label: half_path(label, deck, gn, full_rows[deck])
+            for label, deck, gn in (("half-lj-131k", "lj", True),
+                                    ("half-lj-gn0-131k", "lj", False),
+                                    ("half-eam-131k", "eam", True))}
+    torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        cli_phase("cli-131k", "lj", ["--timed", "-o", "1"], workdir)
+        cli_phase("cli-eam-131k", "eam", ["--timed"], workdir)
+        checkpoint_phase(workdir)
+
     def entry(name, source, replaces, t, key, **extra):
         k131, k864 = t["131k"], t["864k"]
         b131, b864 = k131[f"{key}_bound"], k864[f"{key}_bound"]
@@ -989,9 +1274,11 @@ def main():
               also_replaces="minimd_tpu/ops/eam_pallas.py:72"),
         entry("eam_force_rows", "minimd_torch/csrc/eam_rows.cu",
               "minimd_tpu/ops/eam_pallas.py:209", eam_times, "force_rows"),
+        *micro_rows,
     ]
     phase("wall", f"chip_smoke.py {time.time() - wall0:.1f}s in all")
-    print(json.dumps({"kernels": kernels, "matom_steps_per_s": rates}))
+    print(json.dumps({"kernels": kernels, "matom_steps_per_s": rates,
+                      "pins": pins, "half_131k": half}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

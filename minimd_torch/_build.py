@@ -53,6 +53,9 @@ _SIGNATURES = {
     # x, fp, f, eng, vir, tab, rowmap, nbx, nby, nbz, C, prdx, prdy, prdz,
     # evflag, stream
     "eam_force_rows_launch": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    # x, y, n, reps, stream (the micro-probes)
+    "fma_chain_launch": [_P, _P, ctypes.c_longlong, _I, _P],
+    "copy_add_launch": [_P, _P, ctypes.c_longlong, _I, _P],
 }
 
 _lib = None

@@ -1,22 +1,29 @@
 """Command-line entry point of the PyTorch/CUDA port (the single-device
-LJ and EAM subset of minimd_tpu.cli, ref/ljs.cpp:61-504).
+part of minimd_tpu.cli, ref/ljs.cpp:61-504).
 
     python -m minimd_torch -i inputs/in.lj.miniMD [-s N] [-n steps]
         [-p lj|eam] [--precision 1|2] [--device cuda|cpu]
+        [--half_neigh 0|1] [-gn 0|1] [--timed] [--check_exchange]
+        [-o 1] [--yaml_screen] [--profile DIR]
 
 Deck and override precedence are minimd_tpu.cli.load_input's (copied
-here). Flags of the JAX CLI that the port does not have yet exit with an
-error naming the ROADMAP item.
+here). The port's `--device cuda|cpu` takes the place of the reference's
+`-d N` (a GPU id); `--backend` is refused, as the port has no backend
+switch (the tensors' device decides), and `--devices > 1` exits until the
+multi-device run is ported (ROADMAP queue 1 item 9). The reference's CPU
+execution knobs are accepted and do nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 from .config import (FORCE_EAM, FORCE_LJ, UNITS_LJ, UNITS_METAL, In,
                      builtin_deck, parse_deck)
-from .timer import TIME_TOTAL, Timer
+from .timer import TIME_COMM, TIME_FORCE, TIME_NEIGH, TIME_TOTAL, Timer
 
 VARIANT_STRING = "miniMD-torch 0.1 (PyTorch/CUDA)"
 
@@ -41,31 +48,62 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--force", dest="forcestyle", default=None,
                    choices=["lj", "eam"])
     p.add_argument("-f", "--data_file", default=None)
+    p.add_argument("-o", "--yaml_output", type=int, default=0,
+                   help="1 = write the YAML report miniMD-<date>.yaml")
+    p.add_argument("--yaml_screen", action="store_true",
+                   help="also print the YAML report")
     p.add_argument("--precision", type=int, default=1, choices=[1, 2],
-                   help="1=float32, 2=float64 (float64 runs on the CPU only)")
+                   help="1=float32, 2=float64 (the card's kernels are "
+                        "float32)")
     p.add_argument("--capacity", type=int, default=None,
                    help="cell capacity override (default: data-driven)")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    # flags of minimd_tpu's CLI that the port does not have yet
-    p.add_argument("--devices", type=int, default=1)
-    p.add_argument("--half_neigh", type=int, default=0)
-    p.add_argument("--timed", action="store_true")
-    p.add_argument("-o", "--yaml_output", type=int, default=0)
-    p.add_argument("--profile", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the run goes (the reference's -d N GPU id "
+                        "has no counterpart)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="> 1: not ported yet (ROADMAP queue 1 item 9)")
+    p.add_argument("--backend", default=None,
+                   help="refused: the port has no backend switch")
+    p.add_argument("--timed", action="store_true",
+                   help="run with phase timers (force, neigh) and a card "
+                        "sync at every stamp; the same trajectory")
+    p.add_argument("--check_exchange", action="store_true",
+                   help="timed run that audits each interval's largest "
+                        "displacement against skin/2")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="capture a torch.profiler trace of the run (CUDA "
+                        "activity on the card) into DIR as Chrome JSON")
+    p.add_argument("--half_neigh", type=int, default=0,
+                   help="1 = Newton half-neighbor path, LJ + EAM (each pair "
+                        "evaluated once, j-side accumulation folded back; "
+                        "plain torch, a parity option); 0 = full stencils")
+    p.add_argument("-gn", "--ghost_newton", type=int, default=1,
+                   help="with --half_neigh 1 (ljs.cpp:205-206): 1 = Newton's "
+                        "3rd law across the periodic boundary, ghost forces "
+                        "folded back (comm.cpp:320-361); 0 = boundary pairs "
+                        "duplicated on both owners at half eng/vir weight, "
+                        "no fold (force_lj.cpp:239-249). LJ implements both; "
+                        "with full stencils it has no effect")
+    # the reference's CPU execution knobs: accepted, no effect
+    p.add_argument("--sort", type=int, default=-1, help="[no-op]")
+    p.add_argument("-t", "--num_threads", type=int, default=1,
+                   help="[no-op] reference OpenMP thread count")
+    p.add_argument("--teams", type=int, default=1, help="[no-op]")
+    p.add_argument("-sse", type=int, default=0,
+                   help="miniMD-SSE only: exits")
+    p.add_argument("-dm", "--device_map", action="store_true",
+                   help="[no-op] reference GPU/rank mapping")
+    p.add_argument("-ng", "--num_gpus", type=int, default=2, help="[no-op]")
+    p.add_argument("--skip_gpu", type=int, default=-1, help="[no-op]")
     return p
 
 
 def _unported(args) -> str | None:
     if args.devices > 1:
         return "--devices > 1 (ROADMAP queue 1 item 9)"
-    if args.half_neigh == 1:
-        return "--half_neigh 1 (ROADMAP queue 1 item 8)"
-    if args.timed:
-        return "--timed (ROADMAP queue 1 item 7)"
-    if args.yaml_output:
-        return "-o 1 (ROADMAP queue 1 item 7)"
-    if args.profile:
-        return "--profile (ROADMAP queue 1 item 7)"
+    if args.backend is not None:
+        return ("--backend (ROADMAP queue 1 item 11: the port has no "
+                "backend switch; the tensors' device decides)")
     return None
 
 
@@ -73,8 +111,10 @@ def load_input(args) -> In:
     """Deck, then the command line's overrides (ljs.cpp:330-379)."""
     if args.input_file:
         inp = parse_deck(args.input_file)
+        inp.source = args.input_file
     else:
         inp = builtin_deck("lj")
+        inp.source = "in.lj.miniMD"
     if args.nsteps > 0:
         inp.ntimes = args.nsteps
     if args.size > 0:
@@ -111,24 +151,53 @@ def banner(inp, sim, args):
     print(f"\t# Timestep size: {inp.dt:f}")
     print("# Technical Settings: ")
     print(f"\t# Neigh cutoff: {inp.neigh_cut:f}")
-    print("\t# Half neighborlists: 0")
+    print(f"\t# Half neighborlists: {int(sim.half_neigh)}")
     print(f"\t# Cell grid: {sim.geom.nb[0]} {sim.geom.nb[1]} {sim.geom.nb[2]} "
           f"(capacity {sim.geom.capacity})")
     print(f"\t# Neighbor frequency: {inp.neigh_every}")
     print(f"\t# Thermo frequency: {inp.thermo_nstat}")
+    print(f"\t# Ghost Newton: {args.ghost_newton}")
     print(f"\t# Size of float: {4 if args.precision == 1 else 8}")
     print()
+
+
+def _notes(args, inp):
+    """The JAX CLI's notes on the half-neighbor options
+    (minimd_tpu/cli.py:156-196)."""
+    if args.half_neigh not in (0, 1):
+        print("# Warning: --half_neigh -1 (the reference's unsafe-threaded "
+              "mode) has no analog here; using full stencils. Supported: "
+              "0 (full, default) and 1 (Newton half-neighbor).")
+    if args.half_neigh != 1:
+        return
+    if inp.forcetype == FORCE_EAM and args.ghost_newton == 0:
+        # the reference forces gn=0 for EAM (ljs.cpp:277-281); this
+        # build's EAM half path folds instead (ops/eam_half.py)
+        print("# Note: the EAM half-neighbor path uses the ghost-Newton "
+              "fold regardless of -gn (identical physics; the reference "
+              "forces gn=0 for EAM, ljs.cpp:277-281).")
+    elif args.ghost_newton == 0:
+        print("# Note: -gn 0 duplicates boundary pairs on both owners at "
+              "half eng/vir weight and skips the reverse force "
+              "communication (ref force_lj.cpp:239-249); identical "
+              "physics to the gn=1 fold, decomposed differently. On one "
+              "card the fold is a few slab adds, so gn=1 is the default.")
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     missing = _unported(args)
     if missing:
-        sys.exit(f"ERROR: {missing} is not ported to minimd_torch yet.")
+        sys.exit(f"ERROR: {missing} is not ported to minimd_torch.")
+    if args.sse:
+        print("ERROR: -sse applies to the miniMD-SSE CPU variant only. Exiting.")
+        sys.exit(0)
     inp = load_input(args)
+    _notes(args, inp)
 
     import torch
 
+    from .output import lost_atom_check, yaml_report
     from .sim import Simulation
 
     dtype = torch.float32 if args.precision == 1 else torch.float64
@@ -136,7 +205,9 @@ def main(argv=None):
     print("# Create System:")
     sim = Simulation.from_input(inp, ntypes=args.ntypes, dtype=dtype,
                                 device=args.device, nbins=nbins,
-                                capacity=args.capacity)
+                                capacity=args.capacity,
+                                half_neigh=args.half_neigh == 1,
+                                ghost_newton=args.ghost_newton != 0)
     print("# Done .... ")
     banner(inp, sim, args)
 
@@ -144,24 +215,51 @@ def main(argv=None):
     print("# Timestep T U P Time")
     r0 = sim._row0
     print(f"{r0[0]} {r0[1]:e} {r0[2]:e} {r0[3]:e}  0.000")
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if sim.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
     timer = Timer()
     timer.barrier_start(TIME_TOTAL)
-    trace = sim.run()        # ends in a host sync: the time is complete
+    with prof:
+        if args.timed or args.check_exchange:
+            trace = sim.run_timed(timer, check_exchange=args.check_exchange)
+        else:
+            trace = sim.run()    # ends in a host sync: the time is complete
     timer.barrier_stop(TIME_TOTAL)
-    t_total = timer.array[TIME_TOTAL]
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, "minimd_torch_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"# profiler trace: {path}")
 
-    for r in sim.thermo_trace(trace)[1:]:
+    t = timer.array
+    t_total = t[TIME_TOTAL]
+    rows = sim.thermo_trace(trace)
+    for r in rows[1:]:
         print(f"{r[0]} {r[1]:e} {r[2]:e} {r[3]:e} {t_total:6.3f}")
-    lost = sim.natoms - int(sim.state.valid.sum())
+    lost = lost_atom_check(sim)
     if lost:
         print(f"# WARNING: {lost} atoms lost")
 
+    t_force, t_neigh, t_comm = t[TIME_FORCE], t[TIME_NEIGH], t[TIME_COMM]
+    t_other = max(t_total - t_force - t_neigh - t_comm, 0.0)
     perf = sim.natoms * inp.ntimes / t_total if t_total else 0.0
     print("\n\n# Performance Summary:")
     print("# MPI_proc OMP_threads nsteps natoms t_total t_force t_neigh "
           "t_comm t_other performance perf/thread grep_string t_extra")
-    print(f"1 1 {inp.ntimes} {sim.natoms} {t_total:f} 0.000000 0.000000 "
-          f"0.000000 {t_total:f} {perf:f} {perf:f} PERF_SUMMARY 0.000000\n\n")
+    print(f"1 1 {inp.ntimes} {sim.natoms} {t_total:f} {t_force:f} "
+          f"{t_neigh:f} {t_comm:f} {t_other:f} {perf:f} {perf:f} "
+          f"PERF_SUMMARY 0.000000\n\n")
+
+    if args.yaml_output:
+        path = yaml_report(sim, rows, timer, screen=args.yaml_screen)
+        print(f"# YAML report: {path}")
+    return sim, rows
 
 
 if __name__ == "__main__":

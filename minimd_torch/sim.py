@@ -18,6 +18,14 @@ fused_step=True (LJ, f32, thermo_nstat > 0, as in the JAX package) runs
 each interval's plain steps through the fused step (ops/lj_step_cuda.py on
 CUDA, ops/lj_step.py on the CPU): one launch per step for the force, both
 kicks and the drift.
+
+half_neigh=True is the Newton half-neighbor parity option on every device
+(ops/lj_half.py with both ghost_newton variants, ops/eam_half.py): plain
+torch, as the JAX package's half path is XLA, in any dtype; on CUDA the
+pull rebin kernel still runs it when the state is float32.
+
+run_timed() runs the same steps as run() with phase timers (FORCE, NEIGH)
+and a card sync at every stamp.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from . import cells, create, thermo
 from .config import FORCE_EAM, FORCE_LJ, UNITS_METAL, In
+from .timer import TIME_FORCE, TIME_NEIGH
 from .ops.eam import EAMTables
 from .ops.lj import LJParams
 from .ops.pairgrid import halo_extent
@@ -61,6 +70,9 @@ class Simulation:
     # fused_step: plain steps through step_fn(x, w, evflag, out) ->
     # (x, w, eng, virial, vsq); seed_fn(x, v, f) -> (x, w) starts an interval
     fused_step: bool = False
+    # the Newton half-neighbor force (ghost_newton: the reference's -gn)
+    half_neigh: bool = False
+    ghost_newton: bool = True
     step_fn: object = None
     seed_fn: object = None
     eng_vdwl: torch.Tensor | None = None
@@ -80,6 +92,7 @@ class Simulation:
                    device="cuda", nbins=None, capacity: int | None = None,
                    potential_path: str | None = None,
                    half_neigh: bool = False,
+                   ghost_newton: bool = True,
                    fused_step: bool = False) -> "Simulation":
         _check_options(inp, dtype, half_neigh, fused_step)
         prd, x_np, v_np, typ_np, mass = create.setup_system(
@@ -87,7 +100,8 @@ class Simulation:
         return Simulation.from_arrays(
             inp, prd, x_np, v_np, typ_np, mass, ntypes=ntypes, dtype=dtype,
             device=device, nbins=nbins, capacity=capacity,
-            potential_path=potential_path, fused_step=fused_step)
+            potential_path=potential_path, half_neigh=half_neigh,
+            ghost_newton=ghost_newton, fused_step=fused_step)
 
     @staticmethod
     def from_arrays(inp: In, prd, x_np, v_np, typ_np, mass: float, *,
@@ -95,9 +109,11 @@ class Simulation:
                     device="cuda", nbins=None, capacity: int | None = None,
                     potential_path: str | None = None,
                     half_neigh: bool = False,
+                    ghost_newton: bool = True,
                     fused_step: bool = False) -> "Simulation":
         """Build a Simulation from explicit, final state arrays (from_input
-        reduces to this after setup). Velocities are taken as they are."""
+        and checkpoint.resume reduce to this). Velocities are taken as they
+        are."""
         _check_options(inp, dtype, half_neigh, fused_step)
         # The shipped EAM decks are solid Cu (600 K start, cooling): vouch
         # crystallinity so commensurate grids get lattice-tight capacity
@@ -110,7 +126,8 @@ class Simulation:
                            device=device)
         sim = Simulation.from_state(
             inp, geom, state, mass, ntypes=ntypes, dtype=dtype, device=device,
-            potential_path=potential_path, fused_step=fused_step)
+            potential_path=potential_path, half_neigh=half_neigh,
+            ghost_newton=ghost_newton, fused_step=fused_step)
         sim._user_nbins, sim._user_capacity = nbins, capacity
         return sim
 
@@ -119,12 +136,14 @@ class Simulation:
                    mass: float, *, ntypes: int | None = None,
                    dtype=torch.float32, device="cuda",
                    potential_path: str | None = None,
+                   half_neigh: bool = False,
+                   ghost_newton: bool = True,
                    fused_step: bool = False) -> "Simulation":
         """Build a Simulation on a state already laid out in `geom`, e.g. one
         carried across from the JAX package (state.state_from_reference,
         state.geometry_from_reference). Forces are recomputed; the EAM
         mass is the potential file's."""
-        _check_options(inp, dtype, False, fused_step)
+        _check_options(inp, dtype, half_neigh, fused_step)
         device = torch.device(device)
         valid = state.valid.cpu().numpy()
         # atoms a capacity overflow dropped still count (grow-and-replay
@@ -152,7 +171,8 @@ class Simulation:
         sim = Simulation(
             inp=inp, geom=geom, state=state, scales=scales, natoms=natoms,
             mass=mass, dtforce=dtforce, dtype=dtype, device=device,
-            params=params, tables=tables, fused_step=fused_step)
+            params=params, tables=tables, fused_step=fused_step,
+            half_neigh=half_neigh, ghost_newton=ghost_newton)
         sim._set_geometry(geom)
         sim._compute_initial_force()
         return sim
@@ -161,6 +181,39 @@ class Simulation:
         """Build the force and rebin closures for a geometry."""
         self.geom = geom
         cuda = self.device.type == "cuda"
+        self.force_fn, self.force_fn_noev = self._make_force(geom, cuda)
+        if self.fused_step:
+            if cuda:
+                from .ops.lj_step_cuda import make_lj_step_cuda as make_step
+            else:
+                from .ops.lj_step import make_lj_step_plain as make_step
+            self.step_fn, self.seed_fn = make_step(
+                geom, self.params, self.inp.dt, self.dtforce, self.dtype,
+                self.device)
+        if min(geom.nb) < 3:
+            # the +-1 pull would alias cells: sort-based placement
+            self.rebin_fn = functools.partial(cells.rebin_lean, geom=geom)
+        elif cuda and self.dtype == torch.float32:
+            # (a float64 state on the card, the half path's, takes the
+            # plain rebin, as the JAX package's Pallas pull is f32 only)
+            from .ops.rebin_cuda import make_rebin_cuda
+            self.rebin_fn = make_rebin_cuda(geom, self.device)
+        else:
+            self.rebin_fn = functools.partial(cells.rebin_local, geom=geom)
+
+    def _make_force(self, geom: cells.CellGeometry, cuda: bool):
+        """(force_ev, force_noev) for a geometry on this device."""
+        if self.half_neigh:
+            # the JAX half path is XLA: plain torch on every device, in
+            # any dtype and stencil reach
+            if self.tables is not None:
+                from .ops.eam_half import make_eam_force_half
+                return make_eam_force_half(geom, self.tables, self.dtype,
+                                           self.device)
+            from .ops.lj_half import make_lj_force_half
+            return make_lj_force_half(geom, self.params, self.dtype,
+                                      self.device,
+                                      ghost_newton=self.ghost_newton)
         if cuda:
             item = "queue 2 items 1, 3-4" if self.tables else "queue 2 item 1"
             if self.dtype != torch.float32:
@@ -174,37 +227,18 @@ class Simulation:
         if self.tables is not None:
             if cuda:
                 from .ops.eam_cuda import make_eam_force_cuda
-                self.force_fn, self.force_fn_noev = make_eam_force_cuda(
-                    geom, self.tables, self.dtype, self.device)
-            else:
-                from .ops.eam import make_eam_force
-                self.force_fn = self.force_fn_noev = make_eam_force(
-                    geom, self.tables, self.dtype, self.device)
+                return make_eam_force_cuda(geom, self.tables, self.dtype,
+                                           self.device)
+            from .ops.eam import make_eam_force
+            force = make_eam_force(geom, self.tables, self.dtype, self.device)
+            return force, force
+        if cuda and not self.params.uniform:
+            raise _not_yet("per-type LJ tables on CUDA", "queue 2 item 1")
+        if cuda:
+            from .ops.lj_cuda import make_lj_force_cuda as make_force
         else:
-            if cuda and not self.params.uniform:
-                raise _not_yet("per-type LJ tables on CUDA", "queue 2 item 1")
-            if cuda:
-                from .ops.lj_cuda import make_lj_force_cuda as make_force
-            else:
-                from .ops.lj_grid import make_lj_force_grid as make_force
-            self.force_fn, self.force_fn_noev = make_force(
-                geom, self.params, self.dtype, self.device)
-        if self.fused_step:
-            if cuda:
-                from .ops.lj_step_cuda import make_lj_step_cuda as make_step
-            else:
-                from .ops.lj_step import make_lj_step_plain as make_step
-            self.step_fn, self.seed_fn = make_step(
-                geom, self.params, self.inp.dt, self.dtforce, self.dtype,
-                self.device)
-        if min(geom.nb) < 3:
-            # the +-1 pull would alias cells: sort-based placement
-            self.rebin_fn = functools.partial(cells.rebin_lean, geom=geom)
-        elif cuda:
-            from .ops.rebin_cuda import make_rebin_cuda
-            self.rebin_fn = make_rebin_cuda(geom, self.device)
-        else:
-            self.rebin_fn = functools.partial(cells.rebin_local, geom=geom)
+            from .ops.lj_grid import make_lj_force_grid as make_force
+        return make_force(geom, self.params, self.dtype, self.device)
 
     def _compute_initial_force(self):
         f, eng, vir = self.force_fn(self.state.x, self.state.typ)
@@ -223,33 +257,76 @@ class Simulation:
         """Run ntimes velocity-Verlet steps; returns the (ntimes, 3)
         [T, U, P] trace, rows filled on thermo steps (and the last step)
         and zero elsewhere (thermo_trace subsamples it)."""
+        return self._run(ntimes)
+
+    def run_timed(self, timer, ntimes: int | None = None,
+                  check_exchange: bool = False) -> np.ndarray:
+        """run() with the reference's phase timers (integrate.cpp:101-192;
+        minimd_tpu/sim.py:783-921): the same steps in the same order, so
+        the same trace, with the card synchronized at every stamp. FORCE
+        takes the plain steps and each reneighbor step's kicks, drift,
+        force and kick; NEIGH the rebin. The fused step is not used, as in
+        the JAX package. A rebin overflow grows the capacity at once and
+        the run goes on from the regrown state (no replay).
+
+        check_exchange: audit each interval's largest displacement against
+        skin/2, the bound that keeps the frozen cell assignment as good as
+        a cached Verlet list (the reference's --check_exchange,
+        integrate.cpp:112-151, as minimd_tpu adapts it)."""
+        return self._run(ntimes, timer=timer, check_exchange=check_exchange)
+
+    def _run(self, ntimes, timer=None, check_exchange=False) -> np.ndarray:
         ntimes = self.inp.ntimes if ntimes is None else ntimes
         every, nstat = self.inp.neigh_every, self.inp.thermo_nstat
         dt, dtf = self.inp.dt, self.dtforce
         mass, scales, natoms = self.mass, self.scales, self.natoms
+        timed = timer is not None
 
         # The kicks and drifts below update x and v (and the fused step w)
         # in place (one pass each instead of two). That would destroy the
         # state a replay after an overflow restarts from, so keep an
-        # untouched copy.
-        before = self.state.clone()
+        # untouched copy (a timed run regrows in place and never replays).
+        before = self.state if timed else self.state.clone()
         x, v, f, typ = (self.state.x, self.state.v, self.state.f,
                         self.state.typ)
         # columns T, U, P, rebin overflow; stays on the device
         trace = torch.zeros((ntimes, 4), dtype=self.dtype, device=self.device)
         eng = vir = None
+        xold = x.clone() if check_exchange else None
+
+        def stamp(which):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timer.stamp(which)
 
         def row(n, t, eng, vir):
             trace[n, :3] = torch.stack([
                 t, thermo.energy(eng, natoms, scales),
                 thermo.pressure(t, vir, scales)])
 
+        def rebin(n, x, v, typ):
+            nonlocal xold
+            if not timed:
+                x, v, typ, ovf = self.rebin_fn(x, v, typ)
+                trace[n, 3] = ovf
+                return x, v, typ
+            stamp(TIME_FORCE)
+            if check_exchange:
+                self._audit_displacement(x, xold)
+            xn, vn, tn, ovf = self.rebin_fn(x, v, typ)
+            if int(ovf) > 0:
+                # the re-layout on the host is the rebin: go on from it
+                xn, vn, tn = self._regrow_mid_run(x, v, typ)
+            if check_exchange:
+                xold = xn.clone()
+            stamp(TIME_NEIGH)
+            return xn, vn, tn
+
         def finish(n, x, v, typ):
             """The step's rebin (on reneighbor steps), force and second
             kick, and its thermo row."""
             if (n + 1) % every == 0:
-                x, v, typ, ovf = self.rebin_fn(x, v, typ)
-                trace[n, 3] = ovf
+                x, v, typ = rebin(n, x, v, typ)
             # energy/virial on thermo steps and on the final step, so the
             # trace always ends with a thermo row (sim.py:400 of the JAX
             # package; the reference's final compute, ljs.cpp:477-483)
@@ -261,8 +338,10 @@ class Simulation:
                 row(n, thermo.temperature(v, mass, scales), eng, vir)
             return x, v, f, typ, eng, vir
 
+        if timed:
+            timer.stamp()
         start = 0
-        if self.fused_step:
+        if self.fused_step and not timed:
             # every complete interval: seed (step n0's first kick and
             # drift), every-1 fused steps, then the reneighbor step on
             # (x, w), which the last fused step already kicked and drifted
@@ -283,24 +362,26 @@ class Simulation:
             v.add_(f, alpha=dtf)
             x.add_(v, alpha=dt)
             x, v, f, typ, eng, vir = finish(n, x, v, typ)
+        if timed:
+            stamp(TIME_FORCE)
 
-        host = trace.cpu().numpy()          # the run's one host sync
+        host = trace.cpu().numpy()   # an untimed run's one host sync
         overflow = before.overflow + int(host[:, 3].sum())
         if overflow > 0:
-            # grow-and-replay, the reference's neighbor-bin resize
-            # semantics (neighbor.cpp:186-208): the overflowed trajectory
-            # dropped atoms, so restart from the pre-run state
-            if self.geom.capacity >= cells.MAX_CAPACITY:
+            if timed or self.geom.capacity >= cells.MAX_CAPACITY:
                 raise RuntimeError(
                     f"cell capacity overflow: {overflow} atom(s) did not "
                     f"fit (capacity {self.geom.capacity}); rebuild with a "
                     "larger --capacity")
+            # grow-and-replay, the reference's neighbor-bin resize
+            # semantics (neighbor.cpp:186-208): the overflowed trajectory
+            # dropped atoms, so restart from the pre-run state
             old_nb, old_cap = self.geom.nb, self.geom.capacity
             grown = min(cells.next_capacity(old_cap), cells.MAX_CAPACITY)
             self._regrow(before, grown, retune=True)
             print(f"# resize: grid {old_nb} C={old_cap} -> {self.geom.nb} "
                   f"C={self.geom.capacity} (rebin overflow), replaying")
-            return self.run(ntimes)
+            return self._run(ntimes)
 
         self.state = MDState(x=x, v=v, f=f, typ=typ, valid=cells.is_valid(x),
                              overflow=overflow)
@@ -311,6 +392,40 @@ class Simulation:
             _, eng, vir = self.force_fn(x, typ)
         self.eng_vdwl, self.virial = eng, vir
         return host[:, :3]
+
+    def _regrow_mid_run(self, x, v, typ):
+        """A timed run's rebin overflowed: lay the pre-rebin state out in a
+        grown geometry (the host re-layout is the rebin) and return its
+        (x, v, typ) (minimd_tpu/sim.py:883-901)."""
+        if self.geom.capacity >= cells.MAX_CAPACITY:
+            raise RuntimeError(
+                f"cell capacity overflow during a timed run (capacity "
+                f"{self.geom.capacity}); rebuild with a larger --capacity")
+        old_nb, old_cap = self.geom.nb, self.geom.capacity
+        pre = MDState(x=x, v=v, f=torch.zeros_like(x), typ=typ,
+                      valid=cells.is_valid(x), overflow=0)
+        self._regrow(pre, cells.next_capacity(old_cap), retune=True)
+        print(f"# resize: grid {old_nb} C={old_cap} -> {self.geom.nb} "
+              f"C={self.geom.capacity} (rebin overflow), re-laying out")
+        if self.state.overflow:
+            raise RuntimeError(
+                f"cell capacity overflow during a timed run: "
+                f"{self.state.overflow} atom(s) did not fit the grown "
+                f"capacity {self.geom.capacity}")
+        return self.state.x, self.state.v, self.state.typ
+
+    def _audit_displacement(self, x, xold):
+        """Warn when an atom moved more than skin/2 since the last rebin:
+        pairs may then be missed."""
+        skin_half = 0.5 * (self.inp.neigh_cut - self.inp.force_cut)
+        both = cells.is_valid(x) & cells.is_valid(xold)
+        d = float(torch.where(both, (x - xold).abs(), 0.0).max())
+        if d > skin_half:
+            print(f"Warning: max per-interval displacement {d:.4f} exceeds "
+                  f"skin/2 = {skin_half:.4f}; pairs may be missed - increase "
+                  "the reneighboring frequency or the skin "
+                  "(integrate.cpp:112-151 analog)")
+        return d
 
     def _regrow(self, s: MDState, capacity: int, retune: bool = False):
         """Re-lay the state out in a geometry with larger cell capacity;
@@ -359,13 +474,11 @@ class Simulation:
 
 
 def _check_options(inp: In, dtype, half_neigh: bool, fused_step: bool):
-    """Refuse what the port does not run: fused_step outside LJ, full
-    neighbors, float32 and thermo_nstat > 0 (ValueError, where the JAX
-    package's from_arrays raises it), and half_neigh (not ported yet)."""
+    """Refuse fused_step outside LJ, full neighbors, float32 and
+    thermo_nstat > 0 (ValueError, where the JAX package's from_arrays
+    raises it)."""
     if fused_step and (inp.forcetype != FORCE_LJ or half_neigh
                        or dtype != torch.float32 or inp.thermo_nstat == 0):
         raise ValueError(
             "fused_step requires the LJ full-neighbor float32 path with "
             "thermo_nstat > 0")
-    if half_neigh:
-        raise _not_yet("half_neigh", "queue 1 item 8")

@@ -1,5 +1,8 @@
-"""Phase timers (the reference's Timer, ref/timer.h:35-64). A copy of
-minimd_tpu.timer; the port's CLI reads TOTAL, wall-clock around the run.
+"""Phase timers (the reference's Timer, ref/timer.h:35-64), a copy of
+minimd_tpu.timer. TOTAL is wall-clock around the run; Simulation.run_timed
+fills FORCE (the plain steps and each force-and-kick) and NEIGH (the
+rebins), synchronizing the card at every stamp. COMM stays 0 on one
+device.
 """
 
 from __future__ import annotations

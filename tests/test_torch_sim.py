@@ -210,10 +210,15 @@ def test_cli_runs_eam_deck(capsys):
     assert lines[i + 2].split()[0] == "20"
 
 
-@pytest.mark.parametrize("argv", [["--devices", "2"], ["--half_neigh", "1"],
-                                  ["--timed"], ["-o", "1"],
-                                  ["--profile", "trace"]])
+@pytest.mark.parametrize("argv", [["--devices", "2"],
+                                  ["--devices", "4", "--half_neigh", "1"],
+                                  ["--devices", "8", "--timed"],
+                                  ["--backend", "xla"],
+                                  ["--backend", "pallas", "-o", "1"]])
 def test_cli_refuses_unported_flags(argv, capsys):
+    """Multi-device (ROADMAP queue 1 item 9) and the JAX CLI's --backend
+    (item 11: the port has no backend switch) exit with the item named;
+    the rest of the single-device surface is ported (test_torch_cli.py)."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["-s", "6", "--device", "cpu", *argv])
     assert "not ported" in str(exc.value.code)
@@ -237,5 +242,9 @@ def test_from_input_builds_eam_deck():
 
 @pytest.mark.parametrize("what", ["half_neigh"])
 def test_from_input_refuses_unported(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation.from_input(_deck(6), device="cpu", **{what: True})
+    """half_neigh is ported (tests/test_torch_half.py); what stays refused
+    with it is the fused step, with the ValueError of
+    minimd_tpu/sim.py:163-168."""
+    with pytest.raises(ValueError, match="fused_step"):
+        Simulation.from_input(_deck(6), device="cpu", fused_step=True,
+                              **{what: True})
