@@ -52,10 +52,16 @@ LAUNCHES = {"fma_chain": 0, "copy_add": 0}
 
 
 def fma_chain_plain(x: torch.Tensor, reps: int) -> torch.Tensor:
-    """reps x DEPTH links of y * A + B (two roundings per link)."""
+    """reps x DEPTH links of y * A + B, each rounded once to float32 as
+    fmaf rounds it: the product of two float32 values is exact in float64,
+    so only the sum rounds before the cast (a double rounding that differs
+    from fmaf's single one needs the float64 sum to land on a float32 tie,
+    about one link in 2^29)."""
+    a = float(np.float32(A))
+    b = float(np.float32(B))
     y = x
     for _ in range(reps * DEPTH):
-        y = y * A + B
+        y = y.double().mul_(a).add_(b).to(x.dtype)
     return y
 
 

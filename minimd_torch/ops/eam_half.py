@@ -25,7 +25,8 @@ import torch
 
 from ..cells import CellGeometry, is_valid
 from .eam import EAMTables, eval_deriv, eval_value, spline_columns
-from .lj_half import fold_halo, j_slices, positive_half, stacked_slices
+from .lj_half import (fold_halo, j_slices, offset_chunks, positive_half,
+                      stacked_slices)
 from .pairgrid import halo_extent, pad_grid_int, stencil_slice, to_padded_soa
 
 
@@ -34,15 +35,15 @@ def make_eam_force_half(geom: CellGeometry, tables: EAMTables,
     """(force_ev, force_noev) closures: (x, typ) -> (f (3, M), eng_vdwl,
     virial). All type pairs share the one funcfl table, as in the
     reference (force_eam.cpp:753-760). force_noev returns eng = virial =
-    0. The positive half of the stencil is one stacked batch per pass, as
-    in ops/lj_half.py."""
+    0. The positive half of the stencil runs in the stacked batches of
+    ops/lj_half.py's offset_chunks, in both passes."""
     nb = geom.nb
     nbx, nby, nbz = nb
     C, M = geom.capacity, geom.nslots
     h = halo_extent(geom)
     tri = torch.triu(torch.ones((C, C), dtype=torch.bool, device=device),
                      diagonal=1)
-    half = positive_half(geom)
+    chunks = [offs for _, offs in offset_chunks(positive_half(geom), geom)]
 
     rhor = spline_columns(tables.rhor_spline, dtype, device)
     frho = spline_columns(tables.frho_spline, dtype, device)
@@ -72,20 +73,24 @@ def make_eam_force_half(geom: CellGeometry, tables: EAMTables,
                 mask = mask & mask_extra
             return d, rsq, mask
 
-        # the positive half as one stacked batch, then the own cell (i < j)
-        batches = ((stacked_slices(Xp, half, h, nb), None), (Xi, tri))
+        def batches():
+            """(offsets, j positions, own-cell mask): the positive half in
+            stacked batches, then the own cell (i < j; offsets None)."""
+            for offs in chunks:
+                yield offs, stacked_slices(Xp, offs, h, nb), None
+            yield None, Xi, tri
 
         # pass 1: densities, both directions of each pair
         rho = torch.zeros((nbz, nby, nbx, C), dtype=dtype, device=dev)
         rho_pad = torch.zeros(pshape, dtype=dtype, device=dev)
-        for Yd, own in batches:
+        for offs, Yd, own in batches():
             _, rsq, mask = pair(Yd, own)
             _, m, p = spline_idx(rsq, mask)
             val = torch.where(mask, eval_value(rhor, m, p), 0.0)
             rj = val.sum(dim=-2)
-            if own is None:
+            if offs is not None:
                 rho += val.sum(dim=-1).sum(dim=0)
-                for k, off in enumerate(half):
+                for k, off in enumerate(offs):
                     rho_pad[j_slices(off, h, nb)] += rj[k]
             else:
                 rho += val.sum(dim=-1)
@@ -105,8 +110,6 @@ def make_eam_force_half(geom: CellGeometry, tables: EAMTables,
         # (force_eam.cpp:851)
         fp_pad = pad_grid_int(fp, geom, h)
         fp_i = stencil_slice(fp_pad, (0, 0, 0), h, nb)
-        fp_js = (torch.stack([stencil_slice(fp_pad, off, h, nb)
-                              for off in half]), fp_i)
 
         # pass 2: forces
         f = [torch.zeros((nbz, nby, nbx, C), dtype=dtype, device=dev)
@@ -115,7 +118,9 @@ def make_eam_force_half(geom: CellGeometry, tables: EAMTables,
                 for _ in range(3)]
         eng = torch.zeros((), dtype=dtype, device=dev)
         vir = torch.zeros((), dtype=dtype, device=dev)
-        for (Yd, own), fp_j in zip(batches, fp_js):
+        for offs, Yd, own in batches():
+            fp_j = fp_i if offs is None else torch.stack(
+                [stencil_slice(fp_pad, off, h, nb) for off in offs])
             d, rsq, mask = pair(Yd, own)
             r, m, p = spline_idx(rsq, mask)
             rhoip = eval_deriv(rhor, m, p)
@@ -129,9 +134,9 @@ def make_eam_force_half(geom: CellGeometry, tables: EAMTables,
             for c in range(3):
                 fd = fpair * d[c]
                 fj = fd.sum(dim=-2)
-                if own is None:
+                if offs is not None:
                     f[c] += fd.sum(dim=-1).sum(dim=0)
-                    for k, off in enumerate(half):
+                    for k, off in enumerate(offs):
                         fpad[c][j_slices(off, h, nb)] -= fj[k]
                 else:
                     f[c] += fd.sum(dim=-1)

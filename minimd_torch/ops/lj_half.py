@@ -73,10 +73,26 @@ def ghost_cells(off, nb) -> np.ndarray:
     return gz[:, None, None] | gy[None, :, None] | gx[None, None, :]
 
 
+# The most (i, j) pair elements, offsets x cells x C x C, that one stacked
+# batch of offsets evaluates. Each pair temporary of a batch is this many
+# elements (128 MiB in float32), and a batch holds about ten at once; a
+# batch is one offset at the least.
+PAIR_BUDGET = 1 << 25
+
+
+def offset_chunks(offs, geom: CellGeometry):
+    """(start, offsets) for consecutive runs of `offs` of at most
+    PAIR_BUDGET pair elements each: the small grids take the whole half
+    stencil in one batch (few launches per step), the large ones loop over
+    batches (bounded memory, as the JAX package's loop over offsets)."""
+    k = max(1, PAIR_BUDGET // (geom.nslots * geom.capacity))
+    return [(i, offs[i:i + k]) for i in range(0, len(offs), k)]
+
+
 def stacked_slices(Xp, offs, h: int, nb) -> list[torch.Tensor]:
     """(len(offs), Z, Y, X, C) per padded grid: the interior-aligned
-    views at every offset, stacked, so one elementwise launch covers the
-    whole half stencil."""
+    views at every offset, stacked, so one elementwise launch covers a
+    batch of offsets."""
     return [torch.stack([stencil_slice(g, off, h, nb) for off in offs])
             for g in Xp]
 
@@ -96,9 +112,9 @@ def make_lj_force_half(geom: CellGeometry, params: LJParams,
     virial), type-uniform parameters only (like the reference's Newton
     fast path). force_noev returns eng = virial = 0.
 
-    The 13 positive offsets are evaluated as one stacked batch (and gn=0's
-    13 negative ones as another): the same pair arithmetic as the JAX
-    package's loop over offsets, in ~13x fewer launches."""
+    The 13 positive offsets (and gn=0's 13 negative ones) are evaluated in
+    stacked batches of offset_chunks: the same pair arithmetic as the JAX
+    package's loop over offsets, in up to ~13x fewer launches."""
     if not params.uniform:
         raise ValueError("the half-neighbor path needs type-uniform LJ "
                          "parameters")
@@ -113,6 +129,8 @@ def make_lj_force_half(geom: CellGeometry, params: LJParams,
                      diagonal=1)
     half = positive_half(geom)
     neg = [(-o[0], -o[1], -o[2]) for o in half]
+    half_chunks, neg_chunks = (offset_chunks(half, geom),
+                               offset_chunks(neg, geom))
     # gn=0: the 0.5 energy/virial weight of ghost pairs at each positive
     # offset, and the ghost-j mask of each negative offset (static)
     scale = torch.as_tensor(
@@ -144,22 +162,24 @@ def make_lj_force_half(geom: CellGeometry, params: LJParams,
         vir = torch.zeros((), dtype=dtype, device=x.device)
 
         # the positive half: i side here, j side into the padded grid
-        d, rsq, sr6, fc, m = pair(Xi, stacked_slices(Xp, half, h, nb))
-        for c in range(3):
-            fd = fc * d[c]
-            f[c] += fd.sum(dim=-1).sum(dim=0)
-            fj = fd.sum(dim=-2)
-            for k, off in enumerate(half):
-                fpad[c][j_slices(off, h, nb)] -= fj[k]
-        if evflag:
-            e_pair = sr6 * (sr6 - 1.0) * m
-            v_pair = rsq * fc
-            if not ghost_newton:
-                # gn=0: ghost pairs at 0.5 (force_lj.cpp:246-248); the
-                # other owner adds the other half
-                e_pair, v_pair = e_pair * scale, v_pair * scale
-            eng = eng + torch.sum(e_pair)
-            vir = vir + torch.sum(v_pair)
+        for lo, offs in half_chunks:
+            d, rsq, sr6, fc, m = pair(Xi, stacked_slices(Xp, offs, h, nb))
+            for c in range(3):
+                fd = fc * d[c]
+                f[c] += fd.sum(dim=-1).sum(dim=0)
+                fj = fd.sum(dim=-2)
+                for k, off in enumerate(offs):
+                    fpad[c][j_slices(off, h, nb)] -= fj[k]
+            if evflag:
+                e_pair = sr6 * (sr6 - 1.0) * m
+                v_pair = rsq * fc
+                if not ghost_newton:
+                    # gn=0: ghost pairs at 0.5 (force_lj.cpp:246-248); the
+                    # other owner adds the other half
+                    s = scale[lo:lo + len(offs)]
+                    e_pair, v_pair = e_pair * s, v_pair * s
+                eng = eng + torch.sum(e_pair)
+                vir = vir + torch.sum(v_pair)
 
         if not ghost_newton:
             # gn=0: the pairs gn=1 receives through the fold are evaluated
@@ -167,13 +187,15 @@ def make_lj_force_half(geom: CellGeometry, params: LJParams,
             # i cells whose j is a ghost (an interior j at a negative
             # offset is a pair already counted from the other cell). Force
             # on i only; energy and virial at the 0.5 ghost weight.
-            d, rsq, sr6, fc, m = pair(Xi, stacked_slices(Xp, neg, h, nb),
-                                      mask_extra=gmask)
-            for c in range(3):
-                f[c] += (fc * d[c]).sum(dim=-1).sum(dim=0)
-            if evflag:
-                eng = eng + 0.5 * torch.sum(sr6 * (sr6 - 1.0) * m)
-                vir = vir + 0.5 * torch.sum(rsq * fc)
+            for lo, offs in neg_chunks:
+                d, rsq, sr6, fc, m = pair(
+                    Xi, stacked_slices(Xp, offs, h, nb),
+                    mask_extra=gmask[lo:lo + len(offs)])
+                for c in range(3):
+                    f[c] += (fc * d[c]).sum(dim=-1).sum(dim=0)
+                if evflag:
+                    eng = eng + 0.5 * torch.sum(sr6 * (sr6 - 1.0) * m)
+                    vir = vir + 0.5 * torch.sum(rsq * fc)
 
         # own cell: i < j, both sides interior
         d, rsq, sr6, fc, m = pair(Xi, Xi, mask_extra=tri)

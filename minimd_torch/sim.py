@@ -262,12 +262,14 @@ class Simulation:
     def run_timed(self, timer, ntimes: int | None = None,
                   check_exchange: bool = False) -> np.ndarray:
         """run() with the reference's phase timers (integrate.cpp:101-192;
-        minimd_tpu/sim.py:783-921): the same steps in the same order, so
-        the same trace, with the card synchronized at every stamp. FORCE
-        takes the plain steps and each reneighbor step's kicks, drift,
-        force and kick; NEIGH the rebin. The fused step is not used, as in
-        the JAX package. A rebin overflow grows the capacity at once and
-        the run goes on from the regrown state (no replay).
+        minimd_tpu/sim.py:783-921): the same steps in the same order, with
+        the card synchronized at every stamp. FORCE takes the plain steps
+        and each reneighbor step's kicks, drift, force and kick; NEIGH the
+        rebin. The fused step is not used, as in the JAX package. A rebin
+        overflow grows the capacity at once and the run goes on from the
+        regrown state, where run() replays from the start: the rows equal
+        run()'s bit for bit only when no rebin overflows (after one, the
+        regrown grid sums the forces in another order).
 
         check_exchange: audit each interval's largest displacement against
         skin/2, the bound that keeps the frozen cell assignment as good as

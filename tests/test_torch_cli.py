@@ -138,8 +138,8 @@ def test_cli_ghost_newton_variants():
 
 @pytest.mark.parametrize("half", [False, True], ids=["full", "half"])
 def test_run_timed_rows_equal_run(half):
-    """run_timed runs run()'s steps in run()'s order: the same trace bit
-    for bit, and the phase buckets filled."""
+    """run_timed runs run()'s steps in run()'s order: with no rebin
+    overflow, the same trace bit for bit, and the phase buckets filled."""
     a = Simulation.from_input(_deck(nstat=5), device="cpu", half_neigh=half)
     b = Simulation.from_input(_deck(nstat=5), device="cpu", half_neigh=half)
     timer = Timer()
@@ -153,7 +153,8 @@ def test_run_timed_rows_equal_run(half):
 def test_run_timed_overflow_grows_and_continues(capsys):
     """A capacity pinned at the t=0 maximum overflows in a rebin; the
     timed run grows it, goes on from the re-laid-out state and keeps
-    every atom."""
+    every atom; its rows then track run()'s (which replays from the start
+    on the grown grid) to summation order, not bit for bit."""
     ref = Simulation.from_input(_deck(), dtype=torch.float64, device="cpu")
     occ = ref.state.valid.reshape(ref.geom.ncells, -1).sum(dim=1)
     sim = Simulation.from_input(_deck(), dtype=torch.float64, device="cpu",

@@ -20,6 +20,7 @@ from minimd_torch.config import builtin_deck
 from minimd_torch.ops.eam import EAMTables, make_eam_force
 from minimd_torch.ops.eam_half import make_eam_force_half
 from minimd_torch.ops.lj import LJParams
+from minimd_torch.ops import lj_half
 from minimd_torch.ops.lj_grid import make_lj_force_grid
 from minimd_torch.ops.lj_half import make_lj_force_half
 from minimd_torch.sim import Simulation
@@ -119,6 +120,30 @@ def test_half_matches_port_full(lj, eam, case):
                                   ghost_newton=case == "lj-gn1")[0]
         full = make_lj_force_grid(geom, params, torch.float64)[0]
     _close(half(st.x, st.typ), full(st.x, st.typ), st.valid.numpy())
+
+
+@pytest.mark.parametrize("per_batch", [1, 5], ids=["loop", "batches-of-5"])
+@pytest.mark.parametrize("case", ["lj-gn1", "lj-gn0", "eam"])
+def test_half_batches_match_one_batch(lj, eam, case, per_batch,
+                                      monkeypatch):
+    """A pair budget that splits the half stencil into batches (one offset
+    each, as the JAX package loops, or five) gives the one-batch forces,
+    energy and virial: the batching bounds memory and changes nothing
+    else."""
+    _, geom, st, arg = eam if case == "eam" else lj
+
+    def make():
+        if case == "eam":
+            return make_eam_force_half(geom, arg, torch.float64)[0]
+        return make_lj_force_half(geom, arg, torch.float64,
+                                  ghost_newton=case == "lj-gn1")[0]
+
+    one = make()
+    monkeypatch.setattr(lj_half, "PAIR_BUDGET",
+                        per_batch * geom.nslots * geom.capacity)
+    assert len(lj_half.offset_chunks(lj_half.positive_half(geom), geom)) \
+        == -(-13 // per_batch)
+    _close(make()(st.x, st.typ), one(st.x, st.typ), st.valid.numpy())
 
 
 def _half_sim(deck, gn=True, nstat=5, half=True):
