@@ -10,8 +10,9 @@ Run from the root of a checkout. Phases, one line each:
    source, side by side);
 3. hold each kernel against its plain PyTorch version on the card, f32:
    the LJ force (ev and noev) at 4k, 131k, 864k, a pinned capacity=64
-   grid and s=6 on a (2,2,2) grid (image aliasing); the pull rebin,
-   bit-identical, on the same grids but the last, on a perturbed state;
+   grid, s=6 on a (2,2,2) grid (image aliasing) and the largest capacity
+   (512, the LJ kernels only); the pull rebin, bit-identical, on the
+   4k, 131k, 864k and capacity=64 grids, on a perturbed state;
    the two EAM kernels (density + embedding, force) on the same five
    shapes of the EAM deck: rho, fp (bit-identical to the plain embedding
    of the kernel's own rho), the embed energy sum, forces, energy and
@@ -30,8 +31,8 @@ Run from the root of a checkout. Phases, one line each:
    and once with fused_step=True (190 lj_step and 10 lj_force launches);
    then -s 60 (864,000 atoms, 100 steps) against tests/golden/864k.lj on
    both paths; timed runs of the two paths in turns (CUDA events, after a
-   warm run), a torch.profiler pass of each at 131k (the card's busy
-   share), each kernel timed against its plain version at both sizes and
+   warm run), a torch.profiler pass of each at 131k and 864k (the card's
+   busy share), each kernel timed against its plain version at both sizes and
    the host's time to issue one launch of each LJ wrapper;
 6. the EAM main path at full width: inputs/in.eam.miniMD (131,072 Cu
    atoms), run(100) with the EAM kernels' launches counted over exactly
@@ -75,6 +76,7 @@ result line is printed.
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +117,37 @@ HALF_GATE_STEPS = 10000
 SHAPES = {"4k": (10, None, None), "131k": (32, None, None),
           "864k": (60, None, None), "cap64": (10, None, 64),
           "s6_nb2": (6, (2, 2, 2), None)}
+# the LJ kernels also at the largest capacity (cells.MAX_CAPACITY): their
+# staged candidates take 73.7 KB of shared memory there, past the 48 KB
+# that a kernel gets without opting in
+LJ_SHAPES = {**SHAPES, "cap512": (10, None, 512)}
+# lj_force's compare at cap512 takes the fused step's +-0.04 lattice: in
+# the +-0.12 draw of that layout the positive and negative pair energies
+# nearly cancel, so f32 sums in two orders (the plain version's and the
+# kernel's, or the plain version's and its own f64 value) differ past
+# ENG_TOL, while forces and virial agree as at the other shapes
+# (PERF.md, the LJ pair loop findings)
+LJ_KICK = {"cap512": 0.04}
+
+
+def ptxas_summary(log):
+    """'kernel[<ev>]: registers, shared memory, spills' for each kernel in
+    nvcc's -Xptxas -v report."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            m = re.search(r"\d([a-z_]+_kernel)", mangled)
+            args = [a if a.isdigit() else ("noev", "ev")[int(a[1])]
+                    for a in re.findall(r"Li(\d+)E|L(b[01])E", mangled)
+                    for a in a if a]
+            name = (m.group(1) if m else mangled) + (
+                f"<{','.join(args)}>" if args else "")
+        elif "spill stores" in ln:
+            spill = ln.strip().split(", ", 1)[1]
+        elif "Used" in ln:
+            out.append(f"{name}: {ln.split('Used ')[1]}, {spill}")
+    return out
 
 
 def phase(name, msg):
@@ -568,6 +601,46 @@ def compare_eam(label, geom, tables, x, typ):
     return rho_err, err
 
 
+def candidate_counts(label, geom, params, x, n_cut):
+    """The LJ pair loop's work at one shape, from the plain mirror of its
+    prune (ops/lj_cuda.kept_candidates) on the card: per own atom the
+    27*C stencil slots, the valid candidates, the kept ones and the pairs
+    inside the cutoff (n_cut); warp-iterations per cell, the kept list
+    times the warps that hold an atom, against the plain walk's 27*C times
+    every warp."""
+    from minimd_torch.ops.lj_cuda import (VALID_BELOW, kept_candidates,
+                                          walk_candidates)
+
+    n, C = geom.ncells, geom.capacity
+    keep = kept_candidates(geom, x, float(params.cutforcesq[0]), VALID_BELOW)
+    _, raw = walk_candidates(geom, x)
+    own = (x[0] < VALID_BELOW).reshape(n, C)
+    n_own = own.sum(dim=1).double()
+    natoms = float(n_own.sum())
+    warps = -(-C // 32)
+    pad = own.new_zeros((n, warps * 32))
+    pad[:, :C] = own
+    active = pad.reshape(n, warps, 32).any(dim=2).sum(dim=1).double()
+    kept = keep.sum(dim=1).double()
+    got = {"slots": 27 * C,
+           "valid": float((n_own * (raw < VALID_BELOW).sum(dim=1)).sum())
+           / natoms,
+           "kept": float((n_own * kept).sum()) / natoms,
+           "in_cut": n_cut / natoms,
+           "warp_iters": float((active * kept).sum()) / n,
+           "warp_iters_plain": warps * 27 * C}
+    got["kept_share"] = got["kept"] / got["slots"]
+    phase("candidates", f"lj {label} C={C}: per atom 27*C={got['slots']} "
+          f"valid={got['valid']:.1f} kept={got['kept']:.1f} "
+          f"(share {got['kept_share']:.3f}) in-cut={got['in_cut']:.1f}; "
+          f"warp-iterations per cell {got['warp_iters']:.1f} (plain walk "
+          f"{got['warp_iters_plain']})")
+    if not got["kept_share"] <= 0.6:
+        raise AssertionError(f"candidates {label}: the prune keeps "
+                             f"{got['kept_share']:.3f} of 27*C")
+    return got
+
+
 def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
     """LJ, fused-step and pull rebin kernels against their plain versions
     at one shape: ms per call, and each kernel's bound from this input."""
@@ -617,6 +690,7 @@ def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
                               plain_iters)
     M = geom.nslots
     n_cut, _ = count_pairs(geom, x, inp.force_cut)
+    t["candidates"] = candidate_counts(label, geom, params, x, n_cut)
     t["lj_bound"] = bound(24 * M, n_cut * _LJ_PAIR_OPS)
     # x, w in; x', w' out
     t["step_bound"] = bound(48 * M, n_cut * _LJ_PAIR_OPS + _STEP_SLOT_OPS * M)
@@ -625,7 +699,8 @@ def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
     phase("kernel-time", f"lj {label} nb={geom.nb} C={geom.capacity} "
           f"pairs={n_cut}: " + " ".join(
               f"{k}={v:.4f}ms" if isinstance(v, float) else
-              f"{k}={v[0]:.5f}ms({v[1]})" for k, v in t.items()))
+              f"{k}={v[0]:.5f}ms({v[1]})" for k, v in t.items()
+              if k != "candidates"))
     phase("host-time", f"lj {label}: host us per call " + " ".join(
         f"{k}={v:.1f}" for k, v in host.items()))
     return t
@@ -990,9 +1065,7 @@ def main():
     t0 = time.time()
     lib_path = _build.build()
     _build.lib()
-    regs = [ln.split("ptxas info    : ")[-1] for ln in
-            (_build.BUILD_DIR / "ptxas.log").read_text().splitlines()
-            if "Used" in ln]
+    regs = ptxas_summary((_build.BUILD_DIR / "ptxas.log").read_text())
     phase("build", f"{lib_path.name} in {time.time() - t0:.1f}s; "
           + "; ".join(regs))
 
@@ -1006,9 +1079,10 @@ def main():
     max_err = dict.fromkeys(("lj_force", "rebin_pull", "lj_step", "eam_rho",
                              "eam_force", "eam_rho_rows", "eam_force_rows"),
                             0.0)
-    for label, (s, nbins, cap) in SHAPES.items():
-        inp, geom, st, xp = lattice(s, nbins, cap)
-        if min(geom.nb) >= 3:
+    for label, (s, nbins, cap) in LJ_SHAPES.items():
+        inp, geom, st, xp = lattice(s, nbins, cap,
+                                    kick=LJ_KICK.get(label, 0.12))
+        if label in SHAPES and min(geom.nb) >= 3:
             max_err["rebin_pull"] = max(max_err["rebin_pull"],
                                         compare_rebin(label, geom, st, xp))
         rebin = cells.rebin_local if min(geom.nb) >= 3 else cells.rebin_lean
@@ -1161,6 +1235,8 @@ def main():
         sims["fused" if fused else "plain"] = sim
     for name, got in rates_in_turns("864k", sims, 100).items():
         rates[f"lj{'_fused' if name == 'fused' else ''}_864k"] = got
+    for name, sim in sims.items():
+        device_share(f"864k-{name}", sim, 100)
     phase("memory-864k", f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           "GiB with both Simulations")
     del sims, sim
@@ -1288,7 +1364,9 @@ def main():
     ]
     phase("wall", f"chip_smoke.py {time.time() - wall0:.1f}s in all")
     print(json.dumps({"kernels": kernels, "matom_steps_per_s": rates,
-                      "pins": pins, "half_131k": half}))
+                      "pins": pins, "half_131k": half,
+                      "lj_candidates": {k: t["candidates"]
+                                        for k, t in times.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

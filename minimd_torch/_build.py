@@ -28,9 +28,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # x, f, eng, vir, nbx, nby, nbz, C, prdx, prdy, prdz, cutsq, eps, sig6,
-    # evflag, stream
+    # valid_below, evflag, stream
     "lj_force_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                        ctypes.c_double, _F, _I, _P],
+                        ctypes.c_double, _F, _F, _I, _P],
     # cid, 6 float channels, typ, 6 float outputs, typ out, counts,
     # overflow, nbx, nby, nbz, C, stream
     "rebin_pull_launch": [_P] * 17 + [_I, _I, _I, _I, _P],
@@ -43,9 +43,9 @@ _SIGNATURES = {
     "eam_force_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _P],
     # x, w, x_next, eng, vir, vsq, nbx, nby, nbz, C, prdx, prdy, prdz,
-    # cutsq, eps, sig6, dt, dtf, evflag, stream
+    # cutsq, eps, sig6, dt, dtf, valid_below, evflag, stream
     "lj_step_launch": [_P] * 6 + [_I] * 4 + [_F] * 4 + [
-        ctypes.c_double, _F, _F, _F, _I, _P],
+        ctypes.c_double, _F, _F, _F, _F, _I, _P],
     # x, rho, fp, embed, frho, nrho, rdrho, tab, rowmap, nbx, nby, nbz, C,
     # prdx, prdy, prdz, valid_below, evflag, stream
     "eam_rho_rows_launch": [_P] * 5 + [_I, _F, _P, _P] + [_I] * 4 + [

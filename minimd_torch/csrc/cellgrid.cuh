@@ -1,5 +1,8 @@
-// The cell walk shared by the pair kernels (lj_force.cu, lj_step.cu,
-// eam_force.cu, eam_rows.cu).
+// The cell walk shared by the pair kernels: eam_force.cu and eam_rows.cu
+// walk it with for_each_neighbor and stage_positions and reduce per-cell
+// partials with block_sum; the LJ pair loop (lj_pair.cuh) takes the same
+// cells one by one with neighbor_cell and adds its partials in
+// block_sum's order.
 //
 // Positions are the raw cell-major (3, M) grid: slot cell*C + r holds the
 // r-th atom of `cell`, empty slots hold far-away sentinels. A block owns
@@ -55,6 +58,22 @@ __device__ __forceinline__ void for_each_neighbor(const CellGrid& g, int cell,
       }
     }
   }
+}
+
+// The k-th (0..26) of the cells that for_each_neighbor visits, in its
+// order: k = (dz+1)*9 + (dy+1)*3 + (dx+1); k = 13 is the own cell.
+__device__ __forceinline__ NeighborCell neighbor_cell(const CellGrid& g,
+                                                      int cell, int k) {
+  const int cx = cell % g.nbx;
+  const int cy = (cell / g.nbx) % g.nby;
+  const int cz = cell / (g.nbx * g.nby);
+  NeighborCell n;
+  const int wz = wrap_cell(cz + k / 9 - 1, g.nbz, g.prdz, &n.shz);
+  const int wy = wrap_cell(cy + (k / 3) % 3 - 1, g.nby, g.prdy, &n.shy);
+  const int wx = wrap_cell(cx + k % 3 - 1, g.nbx, g.prdx, &n.shx);
+  n.base = (long long)((wz * g.nby + wy) * g.nbx + wx) * g.C;
+  n.center = k == 13;
+  return n;
 }
 
 // Copies the neighbor cell's C positions, image shift added, into shared

@@ -17,7 +17,7 @@ import torch
 from .. import _build
 from ..cells import CellGeometry
 from .lj import LJParams
-from .lj_cuda import check_lj_kernel_inputs
+from .lj_cuda import VALID_BELOW, check_lj_kernel_inputs
 from .lj_step import make_lj_step_plain
 
 # Kernel launches since import (or since a caller reset it to 0).
@@ -64,7 +64,7 @@ def make_lj_step_cuda(geom: CellGeometry, params: LJParams, dt: float,
             pptr = [None] * 3
         rc = _build.lib().lj_step_launch(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), *pptr, nbx, nby, nbz,
-            C, *prd, cutsq, eps, sig6, dt, dtforce, int(evflag),
+            C, *prd, cutsq, eps, sig6, dt, dtforce, VALID_BELOW, int(evflag),
             torch.cuda.current_stream(x.device).cuda_stream)
         LAUNCHES += 1
         _build.check(rc, "lj_step_launch")

@@ -23,14 +23,30 @@
         commit unpacked with git archive), so that one call can run parent
         and change in alternating processes.
 
+    python scripts/torch_checks.py lj-parity --repo DIR [--runs 5]
+        this checkout's kernels against DIR's (a parent commit unpacked
+        with git archive) in four processes in turns, DIR, this, this, DIR
+        (both packages are named minimd_torch, so each process imports
+        one). Each process hashes the bytes of the kernels' outputs on the
+        shapes 4k, 131k, 864k, cap64, cap512 and s6_nb2: lj_force f, eng,
+        vir (ev and noev); lj_step x', w' and each step's eng, vir, vsq
+        after 4 chained ev steps, and x', w' of one noev step; eam_rho,
+        eam_force and the gather-table pair on the EAM deck (ev and noev);
+        then times lj_force and lj_step (noev and ev) at 131k and 864k and
+        the LJ main path (plain and fused_step, 131k run(200) and 864k
+        run(100)) `runs` times each. The outputs must hash alike across
+        all four processes.
+
 Every line is printed as "[name] ..." and the last line is a JSON object
 of the numbers.
 """
 
 import argparse
+import hashlib
 import json
 import pathlib
 import statistics
+import subprocess
 import sys
 import time
 
@@ -151,12 +167,158 @@ def eam_rate(runs=10, steps=100):
     return out
 
 
+def _digest(*outs):
+    """sha256 (16 hex digits) of the bytes of the tensors in outs."""
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def lj_parity_worker(runs):
+    """One process of lj-parity: output hashes, kernel times and rates of
+    the minimd_torch on sys.path."""
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import (LJ_SHAPES, cuda_ms, lattice, lj_params,
+                            rebinned, timed_run)
+    from minimd_torch import cells
+    from minimd_torch.config import parse_deck
+    from minimd_torch.ops import eam_cuda, eam_rows_cuda
+    from minimd_torch.ops.eam import EAMTables
+    from minimd_torch.ops.lj_cuda import make_lj_force_cuda
+    from minimd_torch.ops.lj_step_cuda import make_lj_step_cuda
+    from minimd_torch.sim import Simulation
+
+    out = {"hash": {}, "ms": {}, "rate": {}}
+    hashes = out["hash"]
+    tables = EAMTables.from_funcfl()
+    for label, (s, nbins, cap) in LJ_SHAPES.items():
+        inp, geom, st, xp = lattice(s, nbins, cap)
+        rebin = cells.rebin_local if min(geom.nb) >= 3 else cells.rebin_lean
+        x, v, typ, _ = rebin(xp, st.v, st.typ, geom)
+        params = lj_params(inp)
+        k_ev, k_noev = make_lj_force_cuda(geom, params)
+        hashes[f"lj_force {label} ev"] = _digest(*k_ev(x, typ))
+        hashes[f"lj_force {label} noev"] = _digest(*k_noev(x, typ))
+        k_step, seed = make_lj_step_cuda(geom, params, inp.dt, 0.5 * inp.dt)
+        x1, w1 = seed(x, v, k_noev(x, typ)[0])
+        xs, ws, sums = x1.clone(), w1.clone(), []
+        for _ in range(4):
+            xs, ws, *ev = k_step(xs, ws, True)
+            sums += ev
+        hashes[f"lj_step {label} ev x4"] = _digest(xs, ws, *sums)
+        hashes[f"lj_step {label} noev"] = _digest(
+            *k_step(x1.clone(), w1.clone(), False)[:2])
+        lj_grid = f"nb={geom.nb} C={geom.capacity}"
+        _, geom, st, xp = lattice(s, nbins, cap, deck="eam", kick=0.08)
+        x = rebinned(geom, st, xp)
+        for kind, rho_fn, pair_fn in (
+                ("eam", eam_cuda.make_eam_rho_cuda,
+                 eam_cuda.make_eam_pair_cuda),
+                ("eam_rows", eam_rows_cuda.make_eam_rho_rows_cuda,
+                 eam_rows_cuda.make_eam_pair_rows_cuda)):
+            k_rho, k_pair = rho_fn(geom, tables), pair_fn(geom, tables)
+            for ev in (True, False):
+                tag = f"{kind} {label} {'ev' if ev else 'noev'}"
+                rho, fp, embed = k_rho(x, ev)
+                hashes[f"{tag} rho"] = _digest(rho, fp, embed)
+                hashes[f"{tag} force"] = _digest(*k_pair(x, fp, ev))
+        print(f"[lj-parity-hash] {label} LJ {lj_grid}, EAM nb={geom.nb} "
+              f"C={geom.capacity}: "
+              f"{sum(1 for k in hashes if f' {label} ' in k)} outputs",
+              flush=True)
+        torch.cuda.empty_cache()
+    for label, s, iters in (("131k", 32, 50), ("864k", 60, 20)):
+        inp, geom, st, xp = lattice(s)
+        x, v, typ, _ = cells.rebin_local(xp, st.v, st.typ, geom)
+        params = lj_params(inp)
+        k_ev, k_noev = make_lj_force_cuda(geom, params)
+        k_step, seed = make_lj_step_cuda(geom, params, inp.dt, 0.5 * inp.dt)
+        x1, w1 = seed(x, v, k_noev(x, typ)[0])
+        spare = torch.empty_like(x1)
+        for name, fn in (
+                ("lj_force", lambda: k_noev(x, typ)),
+                ("lj_force_ev", lambda: k_ev(x, typ)),
+                ("lj_step", lambda: k_step(x1, w1, False, out=spare)),
+                ("lj_step_ev", lambda: k_step(x1, w1, True, out=spare))):
+            out["ms"][f"{name} {label}"] = cuda_ms(fn, iters)
+        print(f"[lj-parity-time] {label}: " + " ".join(
+            f"{k.split()[0]}={v:.4f}ms" for k, v in out["ms"].items()
+            if k.endswith(label)), flush=True)
+    for label, s, steps in (("131k", 32, 200), ("864k", 60, 100)):
+        inp = parse_deck(HERE / "inputs/in.lj.miniMD")
+        inp.nx = inp.ny = inp.nz = s
+        for path in ("plain", "fused"):
+            sim = Simulation.from_input(inp, device="cuda",
+                                        fused_step=path == "fused")
+            rates = [timed_run(sim, steps)[2] for _ in range(runs)]
+            if sim.state.overflow or sim._regrows:
+                raise AssertionError(f"lj {label} {path}: regrew")
+            out["rate"][f"lj {label} {path}"] = rates
+            print(f"[lj-parity-rate] lj {label} {path}: median "
+                  f"{statistics.median(rates):.3f} Matom-steps/s of "
+                  + " ".join(f"{r:.3f}" for r in rates), flush=True)
+            del sim
+    return out
+
+
+def lj_parity(repo, runs):
+    """Four lj-parity workers in turns (repo, this, this, repo); raises
+    SystemExit if any output hash differs."""
+    turns = [("parent", repo), ("change", HERE), ("change", HERE),
+             ("parent", repo)]
+    got = []
+    for name, where in turns:
+        proc = subprocess.run(
+            [sys.executable, __file__, "lj-parity", "--worker", "--repo",
+             str(where), "--runs", str(runs)], capture_output=True,
+            text=True, check=False)
+        lines = proc.stdout.strip().splitlines()
+        print("\n".join(f"{name}: {ln}" for ln in lines[:-1]), flush=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"lj-parity worker ({name}) failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        got.append((name, json.loads(lines[-1])["lj-parity"]))
+    first = got[0][1]["hash"]
+    differ = sorted({k for _, g in got for k in first
+                     if g["hash"].get(k) != first[k]})
+    for k in first:
+        print(f"[lj-parity] {k}: "
+              f"{'DIFFERS' if k in differ else 'bit-identical'} "
+              f"({first[k]})", flush=True)
+    summary = {"identical": len(first) - len(differ), "differ": differ,
+               "turns": [n for n, _ in got]}
+    for key in ("ms", "rate"):
+        summary[key] = {k: [g[key][k] for _, g in got] for k in got[0][1][key]}
+    for k, vals in summary["ms"].items():
+        print(f"[lj-parity-ms] {k} P C C P: "
+              + " ".join(f"{v:.4f}" for v in vals), flush=True)
+    for k, vals in summary["rate"].items():
+        med = [statistics.median(v) for v in vals]
+        print(f"[lj-parity-rate] {k} medians P C C P: "
+              + " ".join(f"{v:.3f}" for v in med) + "; parent range "
+              f"{min(min(vals[0]), min(vals[3])):.3f}-"
+              f"{max(max(vals[0]), max(vals[3])):.3f}, change range "
+              f"{min(min(vals[1]), min(vals[2])):.3f}-"
+              f"{max(max(vals[1]), max(vals[2])):.3f}", flush=True)
+    if differ:
+        print(json.dumps({"lj-parity": summary}))
+        raise SystemExit(f"lj-parity: {len(differ)} output(s) differ")
+    return summary
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("what", choices=["gates-f64", "half-memory", "eam-rate"])
+    p.add_argument("what", choices=["gates-f64", "half-memory", "eam-rate",
+                                    "lj-parity"])
     p.add_argument("--repo", default=None,
-                   help="eam-rate: import minimd_torch from this checkout")
-    p.add_argument("--runs", type=int, default=10)
+                   help="eam-rate, lj-parity: import minimd_torch from this "
+                   "checkout (lj-parity: the one the change is held against)")
+    p.add_argument("--worker", action="store_true",
+                   help="lj-parity: one process of the four")
+    p.add_argument("--runs", type=int, default=None)
     p.add_argument("--s", type=int, nargs="+", default=[32, 60])
     args = p.parse_args()
 
@@ -164,17 +326,26 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("scripts/torch_checks.py needs a CUDA card")
+    if args.what == "lj-parity" and not args.worker:
+        if args.repo is None:
+            raise SystemExit("lj-parity needs --repo DIR (the parent)")
+        got = lj_parity(pathlib.Path(args.repo).resolve(), args.runs or 5)
+        print(json.dumps({"lj-parity": got, "repo": args.repo}))
+        return
     sys.path.insert(0, str(pathlib.Path(args.repo or HERE).resolve()))
     import minimd_torch
 
-    print(f"[setup] minimd_torch from {pathlib.Path(minimd_torch.__file__).parent}"
-          f" on {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"[setup] minimd_torch from "
+          f"{pathlib.Path(minimd_torch.__file__).parent} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     if args.what == "gates-f64":
         got = gates_f64()
     elif args.what == "half-memory":
         got = half_memory(tuple(args.s))
+    elif args.what == "eam-rate":
+        got = eam_rate(args.runs or 10)
     else:
-        got = eam_rate(args.runs)
+        got = lj_parity_worker(args.runs or 5)
     print(json.dumps({args.what: got, "repo": str(args.repo or HERE)}))
 
 

@@ -1,7 +1,10 @@
 """minimd_torch LJ force held against minimd_tpu on the CPU: the plain
 version (ops/lj_grid.py, also what ops/lj_cuda.py takes for a CPU tensor)
 against the JAX grid path in f64 and the JAX Pallas kernel (interpret
-mode) in f32."""
+mode) in f32; and the plain mirror of the LJ kernels' candidate prune
+(ops/lj_cuda.kept_candidates) against every pair inside the cutoff."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +18,11 @@ from minimd_tpu.ops.lj import LJParams as JLJParams
 from minimd_tpu.ops.lj_grid import make_lj_force_grid as jax_force_grid
 from minimd_torch import cells
 from minimd_torch.ops.lj import LJParams
-from minimd_torch.ops.lj_cuda import make_lj_force_cuda
+from minimd_torch.ops.lj_cuda import (VALID_BELOW, kept_candidates,
+                                      make_lj_force_cuda, walk_candidates)
 from minimd_torch.ops.lj_grid import make_lj_force_grid
 from minimd_torch.sim import Simulation
+from minimd_torch.state import init_state
 
 torch.set_num_threads(2)
 
@@ -155,6 +160,152 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
                                capacity=cells.MAX_CAPACITY + 8)
     with pytest.raises(ValueError, match="capacity"):
         make_lj_force_cuda(big, params, torch.float32, "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _prune_state(kind):
+    """(geom, params, x f32, typ) at 4k (s=10): the lattice with every atom
+    kicked by +-0.12 per coordinate in its slot, or the f32 state after
+    100 steps with no rebin; either way atoms lie outside their cells."""
+    inp = builtin_deck("lj")
+    inp.nx = inp.ny = inp.nz = 10
+    inp.neigh_every = 1000
+    sim = Simulation.from_input(inp, dtype=torch.float32, device="cpu")
+    x = sim.state.x
+    if kind == "kicked":
+        sign = np.sign(np.random.default_rng(7).normal(size=x.shape))
+        x = x + torch.as_tensor(0.12 * sign, dtype=x.dtype) * sim.state.valid
+    else:
+        sim.run(100)
+        x = sim.state.x
+    return sim.geom, sim.params, x, sim.state.typ
+
+
+def _walk_blocks(geom, x, keep):
+    """Per stencil block of the walk (27, in order): own (3, n, C, 1),
+    candidates (3, n, 1, C), candidate raw x (n, 1, C), keep (n, 1, C),
+    whether the block is the own cell."""
+    n, C = geom.ncells, geom.capacity
+    cand, raw = walk_candidates(geom, x)
+    own = x.reshape(3, n, C, 1)
+    for b in range(27):
+        sl = slice(b * C, (b + 1) * C)
+        yield (own, cand[:, :, None, sl], raw[:, None, sl],
+               keep[:, None, sl], not geom.stencil[b].any())
+
+
+def _in_cut(geom, own, cand, raw, center, cutsq):
+    """(n, C, C) pairs of valid atoms with rsq < cutsq, self left out."""
+    d = own - cand
+    rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    pair = (rsq < cutsq) & (own[0] < VALID_BELOW) & (raw < VALID_BELOW)
+    if center:
+        pair &= ~torch.eye(geom.capacity, dtype=torch.bool)
+    return pair, d, rsq
+
+
+PRUNE_CASES = [pytest.param(kind, dt, id=f"{kind}-{name}")
+               for kind in ("kicked", "100-steps")
+               for name, dt in (("f32", torch.float32),
+                                ("f64", torch.float64))]
+
+
+@pytest.mark.parametrize("kind,dtype", PRUNE_CASES)
+def test_kept_candidates_hold_every_pair_in_cut(kind, dtype):
+    geom, params, x, _ = _prune_state(kind)
+    x = x.to(dtype)
+    cutsq = float(params.cutforcesq[0])
+    keep = kept_candidates(geom, x, cutsq, VALID_BELOW)
+    assert keep.shape == (geom.ncells, 27 * geom.capacity)
+    n_pairs = 0
+    for own, cand, raw, kb, center in _walk_blocks(geom, x, keep):
+        pair, _, _ = _in_cut(geom, own, cand, raw, center,
+                             torch.tensor(cutsq, dtype=dtype))
+        assert not bool((pair & ~kb).any())
+        n_pairs += int(pair.sum())
+    assert n_pairs > 50 * 4000   # ~55 in-cut pairs per atom
+
+
+@pytest.mark.parametrize("kind,dtype", PRUNE_CASES)
+def test_force_over_kept_candidates_matches_plain_f64(kind, dtype):
+    """The LJ force summed over the kept candidates only, block by block
+    in walk order, in f64, against lj_grid's f64 force (the keep mask in
+    the case's dtype)."""
+    geom, params, x, typ = _prune_state(kind)
+    x64 = x.to(torch.float64)
+    cutsq = float(params.cutforcesq[0])
+    eps, sig6 = float(params.epsilon[0]), float(params.sigma6[0])
+    keep = kept_candidates(geom, x.to(dtype), cutsq, VALID_BELOW)
+    f = torch.zeros((3, geom.ncells, geom.capacity), dtype=torch.float64)
+    for own, cand, raw, kb, center in _walk_blocks(geom, x64, keep):
+        pair, d, rsq = _in_cut(geom, own, cand, raw, center, cutsq)
+        pair &= kb
+        sr2 = torch.where(pair, 1.0 / rsq, 0.0)
+        sr6 = sr2 * sr2 * sr2 * sig6
+        fc = 48.0 * eps * sr6 * (sr6 - 0.5) * sr2
+        f += (fc * d).sum(dim=-1)
+    fp = make_lj_force_grid(geom, params, torch.float64)[1](x64, typ)[0]
+    valid = cells.is_valid(x64)
+    scale = fp[:, valid].abs().max()
+    assert float((f.reshape(3, -1) - fp).abs().max() / scale) < 1e-12
+
+
+@pytest.mark.parametrize("kind,dtype", PRUNE_CASES)
+def test_kept_share_below_six_tenths(kind, dtype):
+    """The prune leaves less than 0.6 of the 27*C slots (the Minkowski
+    volume of a cell and the cutoff sphere holds ~360 atoms at 4k)."""
+    geom, params, x, _ = _prune_state(kind)
+    keep = kept_candidates(geom, x.to(dtype), float(params.cutforcesq[0]),
+                           VALID_BELOW)
+    share = float(keep.sum(dim=1).double().mean()) / (27 * geom.capacity)
+    assert 0.1 < share < 0.6
+
+
+@pytest.mark.parametrize("side", ["inside", "outside"])
+def test_kept_candidates_at_the_box_corner(side):
+    """A candidate diagonal to the own-atom box's lower corner (an atom
+    that is the box's minimum on all three axes) at one f32 ulp inside or
+    outside the cutoff is kept (the margin is 2^-10); one at 1.01 cutsq
+    is not."""
+    cutsq = 6.25                                     # 2.5^2
+    f32 = np.float32
+    seed = np.array([[4.0, 4.0, 4.0]])
+    geom = cells.build_geometry((9.0, 9.0, 9.0), 2.8, seed, nbins=(3, 3, 3),
+                                capacity=8)
+    # the lower corner of cell (1, 1, 1) of the (offset) grid
+    base = (np.asarray(geom.offset) + np.asarray(geom.binsize)).astype(f32)
+    a = base + np.array([0.1, 0.2, 0.3], dtype=f32)
+    b = base + np.array([1.9, 1.3, 2.2], dtype=f32)
+
+    # f32 positions around the diagonal at distance 2.5 (cell (0, 0, 0)),
+    # 128 x 32 ulp steps in x and z; rsq rounded in f32 as the plain
+    # mirror rounds it: the nearest in-cut and out-of-cut ones
+    q = a - f32(2.5 / np.sqrt(3.0))
+    qx = (q[0] + np.arange(-64, 64) * np.spacing(q[0])).astype(f32)
+    qz = (q[2] + np.arange(-16, 16) * np.spacing(q[2])).astype(f32)
+    grid = [np.broadcast_to(c, (128, 32))
+            for c in (qx[:, None], q[1], qz[None, :])]
+    d = [a[k] - grid[k] for k in range(3)]
+    r = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    one_in, one_out = (np.nextafter(f32(cutsq), f32(lim)) for lim in (0, 10))
+    pick = {"inside": np.argwhere(r == one_in)[0],
+            "outside": np.argwhere((r == f32(cutsq)) | (r == one_out))[0]}
+    near = np.array([g[tuple(pick[side])] for g in grid], dtype=f32)
+    far = a - f32(np.sqrt(1.01 * cutsq / 3.0))       # cell (0, 0, 0) too
+    pos = np.stack([a, b, near, far]).astype(np.float64)
+    st = init_state(pos, np.zeros_like(pos), np.zeros(4, np.int32), geom,
+                    dtype=torch.float32)
+    assert torch.equal(st.x[:, st.valid].T.sort(dim=0).values,
+                       torch.as_tensor(pos, dtype=torch.float32)
+                       .sort(dim=0).values)
+    keep = kept_candidates(geom, st.x, cutsq, VALID_BELOW)
+    cand, _ = walk_candidates(geom, st.x)
+    own = 13                                         # cell (1, 1, 1)
+    got = {tuple(cand[:, own, k].tolist()) for k in
+           torch.nonzero(keep[own]).flatten().tolist()}
+    assert tuple(near.astype(np.float64)) in got
+    assert tuple(far.astype(np.float64)) not in got
+    assert tuple(b.astype(np.float64)) in got         # own cell, slot kept
 
 
 @pytest.mark.cuda
