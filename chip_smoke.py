@@ -14,9 +14,10 @@ Run from the root of a checkout. Phases, one line each:
    (512, the LJ kernels only); the pull rebin, bit-identical, on the
    4k, 131k, 864k and capacity=64 grids, on a perturbed state;
    the two EAM kernels (density + embedding, force) on the same five
-   shapes of the EAM deck: rho, fp (bit-identical to the plain embedding
-   of the kernel's own rho), the embed energy sum, forces, energy and
-   virial, ev and noev; the fused LJ step on the LJ shapes (one call and
+   shapes of the EAM deck, cap512 and a lattice of twice the density
+   (where the kernels hand their stage and lists over early): rho, fp
+   (bit-identical to the plain embedding of the kernel's own rho), the
+   embed energy sum, forces, energy and virial, ev and noev; the fused LJ step on the LJ shapes (one call and
    4 chained calls, ev and noev: x', w', eng, vir, vsq, the input buffer
    unchanged, empty slots copied); the two gather-table EAM kernels on
    the EAM shapes, with the polynomial kernels' checks;
@@ -32,8 +33,10 @@ Run from the root of a checkout. Phases, one line each:
    then -s 60 (864,000 atoms, 100 steps) against tests/golden/864k.lj on
    both paths; timed runs of the two paths in turns (CUDA events, after a
    warm run), a torch.profiler pass of each at 131k and 864k (the card's
-   busy share), each kernel timed against its plain version at both sizes and
-   the host's time to issue one launch of each LJ wrapper;
+   busy share), the host's and the card's time per rebin and per plain
+   step (how much of the idle time each explains), each kernel timed
+   against its plain version at both sizes and the host's time to issue
+   one launch of each LJ wrapper;
 6. the EAM main path at full width: inputs/in.eam.miniMD (131,072 Cu
    atoms), run(100) with the EAM kernels' launches counted over exactly
    that run and its step-0 row held against the golden step 0; then -s 60
@@ -41,7 +44,8 @@ Run from the root of a checkout. Phases, one line each:
    once with the polynomial kernels (the default) and once through the
    gather-table kernels (the Simulation's force closures set to
    ops/eam_rows_cuda.py's; no regrow may undo that); timed runs and
-   kernel timings as for LJ;
+   kernel timings as for LJ, and the EAM kernels' candidates and Horner
+   warp-steps per cell from the plain mirror of their lists;
 7. the micro-probes (minimd_torch/micro.py): fma_chain and copy_add
    against their plain versions, then their own main path, the
    exp_micro.py timing loop at the TPU's rep counts, with launches counted
@@ -56,7 +60,11 @@ Run from the root of a checkout. Phases, one line each:
    EAM deck, t_force and t_neigh above 0, the YAML's lost_atoms: 0, rows
    equal to run()'s;
 10. checkpoint at 131k: save after 100 steps, resume, 100 more, against
-   the uninterrupted run.
+   the uninterrupted run;
+11. the CLI outside the kernels' envelope on both decks at -s 10:
+   --precision 2 and -b 12 (stencil reach 2), on the JAX package's
+   accelerator paths (plain LJ grid, exact-spline EAM, plain EAM grid),
+   rows against tests/golden/4k.*.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (inputs read once, outputs written once) over
@@ -128,6 +136,16 @@ LJ_SHAPES = {**SHAPES, "cap512": (10, None, 512)}
 # ENG_TOL, while forces and virial agree as at the other shapes
 # (PERF.md, the LJ pair loop findings)
 LJ_KICK = {"cap512": 0.04}
+# the polynomial EAM kernels also at the largest capacity (their stage of
+# 9*C candidates with fp takes 92 KB of shared memory there, opted in)
+# and on a lattice of twice the deck's density, where a cell keeps more
+# candidates than its stage holds (up to 357 against 9*C - 32 = 328)
+# and atoms have up to 78 pairs in the cutoff against a list of 64: the
+# kernels hand their stage over and run their lists early there
+EAM_SHAPES = {**SHAPES, "cap512": (10, None, 512), "dense": (10, None, None)}
+EAM_RHO_SCALE = {"dense": 2.0}
+# the EAM kernels' prune keeps ~0.2 of the 27*C slots on the Cu lattice
+EAM_KEPT_SHARE = 0.3
 
 
 def ptxas_summary(log):
@@ -187,27 +205,30 @@ def host_us(fn, iters):
 
 
 @functools.lru_cache(maxsize=None)
-def _setup(deck, s):
+def _setup(deck, s, rho_scale=1.0):
     from minimd_torch import create
     from minimd_torch.config import builtin_deck
 
     inp = builtin_deck(deck)
     inp.nx = inp.ny = inp.nz = s
+    inp.rho *= rho_scale
     return inp, create.setup_system(inp)
 
 
-def lattice(s, nbins=None, capacity=None, seed=7, deck="lj", kick=0.12):
+def lattice(s, nbins=None, capacity=None, seed=7, deck="lj", kick=0.12,
+            rho_scale=1.0):
     """(deck, geometry, f32 CUDA state, perturbed positions) of a shipped
-    deck at size s; every atom moved by ±kick per coordinate (the LJ
-    default is tests/test_cells.py:94-96's), so a rebin has atoms to
-    move. The EAM deck's geometry is built as the port builds it (solid)."""
+    deck at size s, its density times rho_scale; every atom moved by
+    ±kick per coordinate (the LJ default is tests/test_cells.py:94-96's),
+    so a rebin has atoms to move. The EAM deck's geometry is built as the
+    port builds it (solid)."""
     import numpy as np
     import torch
 
     from minimd_torch import cells
     from minimd_torch.state import init_state
 
-    inp, (prd, x, v, typ, _) = _setup(deck, s)
+    inp, (prd, x, v, typ, _) = _setup(deck, s, rho_scale)
     geom = cells.build_geometry(prd, inp.neigh_cut, x, nbins=nbins,
                                 capacity=capacity, solid=deck == "eam")
     st = init_state(x, v, typ, geom, dtype=torch.float32, device="cuda")
@@ -603,13 +624,13 @@ def compare_eam(label, geom, tables, x, typ):
 
 def candidate_counts(label, geom, params, x, n_cut):
     """The LJ pair loop's work at one shape, from the plain mirror of its
-    prune (ops/lj_cuda.kept_candidates) on the card: per own atom the
+    prune (ops/pairgrid.kept_candidates) on the card: per own atom the
     27*C stencil slots, the valid candidates, the kept ones and the pairs
     inside the cutoff (n_cut); warp-iterations per cell, the kept list
     times the warps that hold an atom, against the plain walk's 27*C times
     every warp."""
-    from minimd_torch.ops.lj_cuda import (VALID_BELOW, kept_candidates,
-                                          walk_candidates)
+    from minimd_torch.cells import VALID_BELOW
+    from minimd_torch.ops.pairgrid import kept_candidates, walk_candidates
 
     n, C = geom.ncells, geom.capacity
     keep = kept_candidates(geom, x, float(params.cutforcesq[0]), VALID_BELOW)
@@ -637,6 +658,51 @@ def candidate_counts(label, geom, params, x, n_cut):
           f"{got['warp_iters_plain']})")
     if not got["kept_share"] <= 0.6:
         raise AssertionError(f"candidates {label}: the prune keeps "
+                             f"{got['kept_share']:.3f} of 27*C")
+    return got
+
+
+def eam_candidate_counts(label, geom, tables, x, max_share=EAM_KEPT_SHARE):
+    """The EAM kernels' work at one shape, from the plain mirror of their
+    stage and lists (ops/eam_cuda.in_cut_lists, list_steps) on the card:
+    per own atom the 27*C stencil slots, the valid candidates, the kept
+    ones and the pairs inside the cutoff; per cell the warp-steps of the
+    pair functions over the lanes' lists and the longest lists (more
+    steps than the longest lists: a stage or a list was handed over
+    early), against the first design's, which ran them for every
+    candidate inside the cutoff of any lane of a warp. Fails above a
+    kept share of max_share."""
+    from minimd_torch.cells import VALID_BELOW
+    from minimd_torch.ops import eam_cuda
+    from minimd_torch.ops.pairgrid import kept_candidates, walk_candidates
+
+    n, C = geom.ncells, geom.capacity
+    cutsq = tables.cut * tables.cut
+    keep = kept_candidates(geom, x, cutsq, VALID_BELOW)
+    lists = eam_cuda.in_cut_lists(geom, x, cutsq)
+    steps, any_lane = eam_cuda.list_steps(geom, lists, keep)
+    _, raw = walk_candidates(geom, x)
+    n_own = (x[0] < VALID_BELOW).reshape(n, C).sum(dim=1).double()
+    natoms = float(n_own.sum())
+    got = {"slots": 27 * C,
+           "valid": float((n_own * (raw < VALID_BELOW).sum(dim=1)).sum())
+           / natoms,
+           "kept": float((n_own * keep.sum(dim=1)).sum()) / natoms,
+           "in_cut": float(lists.sum()) / natoms,
+           "steps": float(steps.double().mean()),
+           "longest_list": float(lists.sum(dim=2).amax(dim=1)
+                                 .double().mean()),
+           "steps_any_lane": float(any_lane.double().mean())}
+    got["kept_share"] = got["kept"] / got["slots"]
+    phase("candidates", f"eam {label} C={C}: per atom 27*C={got['slots']} "
+          f"valid={got['valid']:.1f} kept={got['kept']:.1f} (share "
+          f"{got['kept_share']:.3f}) in-cut={got['in_cut']:.1f}; Horner "
+          f"warp-steps per cell {got['steps']:.1f} on the lists (longest "
+          f"list {got['longest_list']:.1f}) against "
+          f"{got['steps_any_lane']:.1f} on any lane's cut (first design)")
+    del keep, lists
+    if not got["kept_share"] <= max_share:
+        raise AssertionError(f"eam candidates {label}: the prune keeps "
                              f"{got['kept_share']:.3f} of 27*C")
     return got
 
@@ -743,6 +809,7 @@ def time_eam_kernels(label, inp, geom, st, xp, iters, plain_iters):
     })
     polys = tables.polys
     n_cut, n_body = count_pairs(geom, x, tables.cut, polys.split)
+    t["candidates"] = eam_candidate_counts(label, geom, tables, x)
     M = geom.nslots
     embed_ops = 3 + 4 + 4            # p, m, pf; fp's two FMA
     t["rho_bound"] = bound(4 * (3 * M + 2 * M),
@@ -758,7 +825,8 @@ def time_eam_kernels(label, inp, geom, st, xp, iters, plain_iters):
     phase("kernel-time", f"eam {label} nb={geom.nb} C={geom.capacity} "
           f"pairs={n_cut} (r<split {n_body}): " + " ".join(
               f"{k}={v:.4f}ms" if isinstance(v, float) else
-              f"{k}={v[0]:.5f}ms({v[1]})" for k, v in t.items()))
+              f"{k}={v[0]:.5f}ms({v[1]})" for k, v in t.items()
+              if k != "candidates"))
     return t
 
 
@@ -777,34 +845,88 @@ def timed_run(sim, steps):
     return trace, ms, sim.natoms * steps / (ms * 1e-3) / 1e6
 
 
+def _dev_ms(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+
+def profiled(fn):
+    """(wall ms, device busy ms, key_averages) of fn() under
+    torch.profiler (CUDA activity), the card synchronized before and
+    after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    return wall, sum(_dev_ms(e) for e in events), events
+
+
 def device_share(label, sim, steps):
     """Wall and device kernel time of sim.run(steps) under torch.profiler
     (CUDA activity only, after a warm run): the device's busy share and
     its five longest kernels. Prints "not measured" where the profiler
     records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     sim.run(steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run(steps)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-
-    busy = sum(dev_ms(e) for e in events)
-    top = sorted(events, key=dev_ms, reverse=True)[:5]
+    wall, busy, events = profiled(lambda: sim.run(steps))
+    top = sorted(events, key=_dev_ms, reverse=True)[:5]
     phase(f"profile-{label}", f"{steps} steps wall {wall:.2f}ms "
           + (f"device {busy:.2f}ms busy {busy / wall:.3f} idle "
              f"{1 - busy / wall:.3f}; " + "; ".join(
-                 f"{e.key[:40]} {dev_ms(e):.2f}ms x{e.count}" for e in top)
+                 f"{e.key[:40]} {_dev_ms(e):.2f}ms x{e.count}" for e in top)
              if busy > 0 else "device time not measured"))
+
+
+def idle_split(label, sim, steps):
+    """Where the card's idle time in run(steps) goes. The idle (wall minus
+    device busy, torch.profiler) of run(steps) and of run(2*steps) split
+    it into a part per run (its start and end: the state copy, the first
+    launches, the final copy of the trace) and a part in the step loop.
+    Per rebin and per plain step (kick, drift, noev force, kick; on a copy
+    of the state) the host's time to issue it (host_us) against the
+    card's busy time: the loop waits on the host where an interval's
+    host time exceeds its card time."""
+    sim.run(steps)
+    wa, ba, _ = profiled(lambda: sim.run(steps))
+    wb, bb, _ = profiled(lambda: sim.run(2 * steps))
+    ia, ib = wa - ba, wb - bb
+    x, v, typ = (sim.state.x.clone(), sim.state.v.clone(),
+                 sim.state.typ.clone())
+    dt, dtf = sim.inp.dt, sim.dtforce
+    f = sim.force_fn_noev(x, typ)[0]
+
+    def step():
+        v.add_(f, alpha=dtf)
+        x.add_(v, alpha=dt)
+        v.add_(sim.force_fn_noev(x, typ)[0], alpha=dtf)
+
+    def rebin():
+        sim.rebin_fn(x, v, typ)
+
+    per = {}
+    for name, fn, n in (("rebin", rebin, 10), ("step", step, 40)):
+        host = host_us(fn, n)
+        _, busy, _ = profiled(lambda: [fn() for _ in range(n)])
+        per[name] = (host, busy / n * 1e3)
+    every = sim.inp.neigh_every
+    host_iv = (every * per["step"][0] + per["rebin"][0]) / 1e3
+    card_iv = (every * per["step"][1] + per["rebin"][1]) / 1e3
+    got = {"idle_ms": ia, "idle_2x_ms": ib, "per_run_ms": 2 * ia - ib,
+           "loop_ms": ib - ia, "rebin_us": per["rebin"],
+           "step_us": per["step"], "interval_ms": (host_iv, card_iv)}
+    phase(f"idle-split-{label}", f"idle of run({steps}) {ia:.2f}ms, of "
+          f"run({2 * steps}) {ib:.2f}ms: {got['per_run_ms']:.2f}ms per run "
+          f"(start and end) + {got['loop_ms']:.2f}ms per {steps} steps of "
+          "the loop; " + " ".join(
+              f"per {k}: host {h:.1f}us card {d:.1f}us;" for k, (h, d)
+              in per.items()) + f" per interval of {every} steps: host "
+          f"{host_iv:.3f}ms card {card_iv:.3f}ms")
+    return got
 
 
 def rates_in_turns(label, sims, steps):
@@ -1008,6 +1130,44 @@ def cli_phase(label, deck, argv, workdir):
     return launches
 
 
+def cli_envelope_phase(label, deck, argv, want_launches, force_module):
+    """cli.main on a shipped deck at -s 10 outside the kernels' envelope
+    (argv: --precision 2, or -b 12 for a stencil reach of 2): the force
+    closures from force_module (the JAX package's choice on its
+    accelerator), exactly the want_launches kernel launches, and the rows
+    at steps 0 and 100 against tests/golden/4k.<deck> (precision 8 in
+    float64, 4 in float32)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from minimd_torch import cli
+    from minimd_torch.validate import compare_traces, parse_golden
+
+    buf = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(buf):
+        sim, rows = cli.main(["-i", str(REPO / f"inputs/in.{deck}.miniMD"),
+                              "-s", "10", "-n", "100", *argv])
+    launches = {k: n for k, n in counters().items() if n}
+    golden = parse_golden(REPO / f"tests/golden/4k.{deck}").rows
+    f64 = "--precision" in argv
+    res = compare_traces(rows, golden, natoms=4000, system=deck,
+                         precision=8 if f64 else 4)
+    module = sim.force_fn.__module__
+    ok = (res.passed and res.nsteps == 2 and launches == want_launches
+          and module == force_module and sim.state.overflow == 0
+          and (sim.dtype == torch.float64) == f64
+          and "# WARNING" not in buf.getvalue())
+    phase(label, f"{' '.join(argv)}: nb={sim.geom.nb} C={sim.geom.capacity}"
+          f" {sim.dtype} force {module} rows={rows} {res} launches="
+          f"{launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the CLI run outside the kernels' "
+                             "envelope failed its checks")
+
+
 def checkpoint_phase(workdir, steps=100):
     """Save the LJ deck at 131k after `steps`, resume it, run `steps` more
     and hold the rows against the uninterrupted run's
@@ -1100,10 +1260,15 @@ def main():
             label, geom, lj_params(inp), x, v, cells.is_valid(x), inp.dt,
             0.5 * inp.dt))
     tables = EAMTables.from_funcfl()
-    for label, (s, nbins, cap) in SHAPES.items():
-        _, geom, st, xp = lattice(s, nbins, cap, deck="eam", kick=0.08)
+    for label, (s, nbins, cap) in EAM_SHAPES.items():
+        _, geom, st, xp = lattice(s, nbins, cap, deck="eam", kick=0.08,
+                                  rho_scale=EAM_RHO_SCALE.get(label, 1.0))
         x = rebinned(geom, st, xp)
+        if label in EAM_RHO_SCALE:
+            eam_candidate_counts(label, geom, tables, x, max_share=1.0)
         for kind, compare in (("", compare_eam), ("_rows", compare_eam_rows)):
+            if kind and label not in SHAPES:
+                continue
             e_rho, e_f = compare(label, geom, tables, x, st.typ)
             max_err[f"eam_rho{kind}"] = max(max_err[f"eam_rho{kind}"], e_rho)
             max_err[f"eam_force{kind}"] = max(max_err[f"eam_force{kind}"],
@@ -1211,6 +1376,7 @@ def main():
         rates[f"lj{'_fused' if name == 'fused' else ''}_131k"] = got
     for name, sim in sims.items():
         device_share(f"131k-{name}", sim, 200)
+    idle = {"lj_131k": idle_split("131k-plain", sims["plain"], 200)}
     del sims, sim
     times = {"131k": time_kernels("131k", *lattice(32), 50, 5)}
 
@@ -1273,6 +1439,7 @@ def main():
         rates[f"eam{'_rows' if name == 'rows' else ''}_131k"] = got
     for name, sim in sims.items():
         device_share(f"eam-131k-{name}", sim, 100)
+    idle["eam_131k"] = idle_split("eam-131k-poly", sims["poly"], 100)
     del sims, sim
     eam_times = {"131k": time_eam_kernels(
         "131k", *lattice(32, deck="eam", kick=0.08), 50, 3)}
@@ -1324,6 +1491,19 @@ def main():
         cli_phase("cli-131k", "lj", ["--timed", "-o", "1"], workdir)
         cli_phase("cli-eam-131k", "eam", ["--timed"], workdir)
         checkpoint_phase(workdir)
+    # the CLI outside the kernels' envelope: float64, and a stencil reach
+    # of 2 (-b 12: LJ 16.8/12 = 1.40 sigma < 2.8, EAM 38.45/12 = 3.2 A <
+    # 5.95), each on the JAX package's accelerator path
+    for label, deck, argv, want, module in (
+            ("cli-lj-f64", "lj", ["--precision", "2"], {},
+             "minimd_torch.ops.lj_grid"),
+            ("cli-lj-b12", "lj", ["-b", "12"], {"rebin_pull": 5},
+             "minimd_torch.ops.lj_grid"),
+            ("cli-eam-f64", "eam", ["--precision", "2"], {},
+             "minimd_torch.ops.eam"),
+            ("cli-eam-b12", "eam", ["-b", "12"], {"rebin_pull": 5},
+             "minimd_torch.ops.eam_grid")):
+        cli_envelope_phase(label, deck, argv, want, module)
 
     def entry(name, source, replaces, t, key, **extra):
         k131, k864 = t["131k"], t["864k"]
@@ -1366,7 +1546,10 @@ def main():
     print(json.dumps({"kernels": kernels, "matom_steps_per_s": rates,
                       "pins": pins, "half_131k": half,
                       "lj_candidates": {k: t["candidates"]
-                                        for k, t in times.items()}}))
+                                        for k, t in times.items()},
+                      "eam_candidates": {k: t["candidates"]
+                                         for k, t in eam_times.items()},
+                      "idle_split": idle}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,9 +39,9 @@ _SIGNATURES = {
     "eam_rho_launch": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _I, _P],
     # x, fp, f, eng, vir, params, nbody, nbx, nby, nbz, C, prdx, prdy, prdz,
-    # evflag, stream
+    # valid_below, evflag, stream
     "eam_force_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _I, _P],
+                         _F, _F, _F, _F, _I, _P],
     # x, w, x_next, eng, vir, vsq, nbx, nby, nbz, C, prdx, prdy, prdz,
     # cutsq, eps, sig6, dt, dtf, valid_below, evflag, stream
     "lj_step_launch": [_P] * 6 + [_I] * 4 + [_F] * 4 + [

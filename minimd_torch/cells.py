@@ -16,7 +16,9 @@ The tensor half ports the sort-based `rebin` (initial placement),
 `rebin_lean` (grids under 3 cells per axis) and the one-hot pull
 `rebin_local` / `rebin_pull`, which is the plain version of the rebin
 kernel in `ops/rebin_cuda.py`. The cell-id arithmetic follows the JAX
-package op for op, so the f32 layout is bit-identical to it.
+package op for op, so the f32 layout is bit-identical to it; a
+Simulation runs it on `RebinConstants` built once per geometry on the
+device, so a rebin copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -240,36 +242,85 @@ def sentinel_positions(nslots: int, dtype, device) -> torch.Tensor:
     return torch.stack([base, zero, zero], dim=0)
 
 
+# A slot holds an atom iff its x is below this.
+VALID_BELOW = 0.5 * _SENTINEL_BASE
+
+
 def is_valid(x: torch.Tensor) -> torch.Tensor:
     """Occupancy recovered from the sentinel coordinates."""
-    return x[0] < 0.5 * _SENTINEL_BASE
+    return x[0] < VALID_BELOW
 
 
-def _per_dim(vals, like: torch.Tensor) -> torch.Tensor:
-    """(3, 1) column of per-dimension constants in x's dtype and device."""
-    return torch.tensor(np.asarray(vals, dtype=np.float64),
-                        dtype=like.dtype, device=like.device)[:, None]
+def _per_dim(vals, dtype, device) -> torch.Tensor:
+    """(3, 1) column of per-dimension constants in a dtype, on a device."""
+    return torch.tensor(np.asarray(vals, dtype=np.float64), dtype=dtype,
+                        device=device)[:, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class RebinConstants:
+    """The rebin glue's per-geometry constants, built once on the device
+    in the working dtype, so that a rebin copies nothing from the host
+    (each host-to-device copy of a constant would wait for the kernels
+    queued before it)."""
+
+    prd: torch.Tensor        # (3, 1)
+    offset: torch.Tensor     # (3, 1)
+    inv: torch.Tensor        # (3, 1) 1/binsize
+    nbm1: torch.Tensor       # (3, 1) int32 nb - 1
+    slot_cell: torch.Tensor  # (M,) int32 cell of each slot
+    slot_rank: torch.Tensor  # (1, C) int32 rank of each slot in its cell
+    sentinel: torch.Tensor   # (3, M) sentinel_positions
+
+    @staticmethod
+    def build(geom: CellGeometry, dtype, device) -> "RebinConstants":
+        C, M = geom.capacity, geom.nslots
+        return RebinConstants(
+            *_cell_columns(geom, dtype, device),
+            slot_cell=torch.arange(M, dtype=torch.int32, device=device) // C,
+            slot_rank=torch.arange(C, dtype=torch.int32, device=device)[None],
+            sentinel=sentinel_positions(M, dtype, device))
+
+    def check(self, x: torch.Tensor):
+        if x.dtype != self.prd.dtype or x.device != self.prd.device:
+            raise ValueError(f"rebin constants are {self.prd.dtype} on "
+                             f"{self.prd.device}, x is {x.dtype} on "
+                             f"{x.device}")
+
+
+def _cell_columns(geom: CellGeometry, dtype, device):
+    """coord_to_cell's (3, 1) columns: prd, offset, 1/binsize in dtype and
+    nb - 1 in int32."""
+    return (_per_dim(geom.prd, dtype, device),
+            _per_dim(geom.offset, dtype, device),
+            _per_dim(1.0 / np.asarray(geom.binsize), dtype, device),
+            torch.tensor([n - 1 for n in geom.nb], dtype=torch.int32,
+                         device=device)[:, None])
 
 
 def pbc_wrap(x: torch.Tensor, prd) -> torch.Tensor:
     """Wrap (3, M) coordinates into [0, prd) with the reference's two-test
-    ordering guarantee (ref/atom.cpp:102-122)."""
-    p = _per_dim(prd, x)
+    ordering guarantee (ref/atom.cpp:102-122). prd: the box lengths, or
+    RebinConstants.prd."""
+    p = prd if isinstance(prd, torch.Tensor) else _per_dim(prd, x.dtype,
+                                                          x.device)
     x = torch.where(x < 0.0, x + p, x)
     return torch.where(x >= p, x - p, x)
 
 
-def coord_to_cell(xw: torch.Tensor, geom: CellGeometry):
+def coord_to_cell(xw: torch.Tensor, geom: CellGeometry, consts=None):
     """Cell id (row-major, x-fastest, int32) + storage ("unfolded")
     coordinates. Same ops, order and dtype as minimd_tpu.cells.coord_to_cell:
     g = xw - off; xs = where(g<0, xw+prd, xw); g = where(g<0, g+prd, g);
     idx = clip(int(g*inv), 0, nb-1) with inv = 1/binsize in the working
-    dtype."""
-    prd = _per_dim(geom.prd, xw)
-    off = _per_dim(geom.offset, xw)
-    inv = _per_dim(1.0 / np.asarray(geom.binsize), xw)
-    nbm1 = torch.tensor([n - 1 for n in geom.nb], dtype=torch.int32,
-                        device=xw.device)[:, None]
+    dtype. consts: RebinConstants for xw's dtype and device (built here
+    when None)."""
+    if consts is None:
+        prd, off, inv, nbm1 = _cell_columns(geom, xw.dtype, xw.device)
+    else:
+        consts.check(xw)
+        prd, off, inv, nbm1 = (consts.prd, consts.offset, consts.inv,
+                               consts.nbm1)
     g = xw - off
     neg = g < 0
     xs = torch.where(neg, xw + prd, xw)
@@ -321,13 +372,16 @@ def rebin(x, v, typ, valid, geom: CellGeometry):
     return nx, nv, nt, nvalid, overflow
 
 
-def rebin_lean(x, v, typ, geom: CellGeometry):
+def rebin_lean(x, v, typ, geom: CellGeometry, consts=None):
     """Sort-based rebin with validity recovered from the sentinels, for
     grids with fewer than 3 cells on an axis (where the ±1 pull would
-    alias cells). Returns (x, v, typ, overflow)."""
+    alias cells). consts: RebinConstants for x (built when None).
+    Returns (x, v, typ, overflow)."""
     valid = is_valid(x)
-    xw = pbc_wrap(x, geom.prd)
-    cid, xs = coord_to_cell(xw, geom)
+    if consts is not None:
+        consts.check(x)
+    xw = pbc_wrap(x, geom.prd if consts is None else consts.prd)
+    cid, xs = coord_to_cell(xw, geom, consts)
     cid = torch.where(valid, cid, geom.ncells)
     (nx, nv, nt), overflow = _sort_place(xs, v, typ, cid, geom)
     return nx, nv, nt, overflow
@@ -371,7 +425,7 @@ def rebin_pull(cid, chans, geom: CellGeometry):
     return [o.reshape(ncells, C) for o in outs], counts, cap_ovf
 
 
-def rebin_local(x, v, typ, geom: CellGeometry, pull=None):
+def rebin_local(x, v, typ, geom: CellGeometry, pull=None, consts=None):
     """Locality-aware rebin: every cell pulls its new occupants from its
     27-cell neighborhood (no global sort). Correctness rests on the skin
     guarantee: an atom moves at most one cell between rebinnings; atoms
@@ -382,18 +436,21 @@ def rebin_local(x, v, typ, geom: CellGeometry, pull=None):
     the plain `rebin_pull` by default, the kernel wrapper of
     ops/rebin_cuda.py on the card. The elementwise prologue (wrap, cell
     id, movement guard) and epilogue (sentinels on unoccupied slots) are
-    shared. Returns (x, v, typ, overflow)."""
+    shared. consts: RebinConstants for x's dtype and device, built once
+    per geometry by the caller (built here when None, the same values).
+    Returns (x, v, typ, overflow)."""
     nbx, nby, nbz = geom.nb
-    C, M = geom.capacity, geom.nslots
-    dev = x.device
+    M = geom.nslots
+    k = consts or RebinConstants.build(geom, x.dtype, x.device)
+    k.check(x)
 
     valid = is_valid(x)
-    xw = pbc_wrap(x, geom.prd)
-    cid, xs = coord_to_cell(xw, geom)
+    xw = pbc_wrap(x, k.prd)
+    cid, xs = coord_to_cell(xw, geom, k)
     cid = torch.where(valid, cid, -1)
 
     # movement guard: new cell within +-1 (with wrap) of the slot's cell
-    old = torch.arange(M, dtype=torch.int32, device=dev) // C
+    old = k.slot_cell
     new = cid.clamp(min=0)
 
     def near(a, b, n):
@@ -411,9 +468,8 @@ def rebin_local(x, v, typ, geom: CellGeometry, pull=None):
     else:
         outs, counts, cap_ovf = pull(cid, chans)
 
-    occ = (torch.arange(C, dtype=torch.int32, device=dev)[None, :]
-           < counts[:, None]).reshape(M)
-    sent = sentinel_positions(M, x.dtype, dev)
+    occ = (k.slot_rank < counts[:, None]).reshape(M)
+    sent = k.sentinel
     new_x = torch.stack([torch.where(occ, outs[d].reshape(M), sent[d])
                          for d in range(3)])
     new_v = torch.stack([torch.where(occ, outs[3 + d].reshape(M), 0.0)

@@ -1,8 +1,8 @@
-// The cell walk shared by the pair kernels: eam_force.cu and eam_rows.cu
-// walk it with for_each_neighbor and stage_positions and reduce per-cell
-// partials with block_sum; the LJ pair loop (lj_pair.cuh) takes the same
-// cells one by one with neighbor_cell and adds its partials in
-// block_sum's order.
+// The cell walk shared by the pair kernels: eam_rows.cu walks it with
+// for_each_neighbor and stage_positions and reduces per-cell partials
+// with block_sum; the pruned stage (cell_stage.cuh) of the LJ and EAM
+// pair kernels takes the same cells one by one with neighbor_cell, and
+// they add their partials with warp_sum in block_sum's order.
 //
 // Positions are the raw cell-major (3, M) grid: slot cell*C + r holds the
 // r-th atom of `cell`, empty slots hold far-away sentinels. A block owns
@@ -88,6 +88,15 @@ __device__ __forceinline__ void stage_positions(const CellGrid& g,
     sy[t] = __ldg(g.x + g.M + n.base + t) + n.shy;
     sz[t] = __ldg(g.x + 2 * g.M + n.base + t) + n.shz;
   }
+}
+
+// Sum of v over the warp in block_sum's order (its first stage); the
+// result is valid in lane 0. A kernel whose one warp takes a cell's slots
+// 32 at a time adds these group sums to 0 in group order, which is
+// block_sum's order over the cell's slots rounded up to a warp.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // Sum of v over the block in a fixed order (warp shuffles, then the warp

@@ -135,16 +135,31 @@ def slope(fn, a: int, b: int, x0: torch.Tensor) -> float:
     """Seconds per rep: the median over 5 pairs of (t(b) - t(a)) /
     (b - a), both counts warmed first. The carry evolves (each call takes
     the previous call's output), as in exp_micro.py; the median, not the
-    least, keeps one slow short leg from making a slope too fast."""
+    least, keeps one slow short leg from making a slope too fast.
+
+    On the host clock (a CPU tensor) a loaded machine can make a pair's
+    slope <= 0: the median is then taken over the positive slopes, and
+    where none is positive, over t(b) / b (the fixed cost of a call
+    included), so the slope stays above 0. The card's slopes are taken
+    as they are."""
     x = fn(x0, a)
     x = fn(x, b)
-    ss = []
+    ss, per_call = [], []
     for _ in range(5):
         x, ta = _timed(lambda t: fn(t, a), x)
         x, tb = _timed(lambda t: fn(t, b), x)
         ss.append((tb - ta) / (b - a))
+        per_call.append(tb / b)
+    if x.device.type == "cpu":
+        ss = [s for s in ss if s > 0] or per_call
     ss.sort()
     return ss[len(ss) // 2]
+
+
+def _sig(v: float, digits: int = 6) -> float:
+    """v rounded to `digits` significant digits (a small rate stays
+    above 0, where a fixed decimal would print 0.0)."""
+    return float(f"{v:.{digits}g}")
 
 
 def probe_inputs(device):
@@ -194,8 +209,8 @@ def main(argv=None):
                         "smoke test with no device metric")
     args = p.parse_args(argv)
     got = measure(args.device)
-    line = {"fma_gops": round(got["fma_gops"], 1),
-            "copy_gbps": round(got["copy_gbps"], 1)}
+    line = {"fma_gops": _sig(got["fma_gops"]),
+            "copy_gbps": _sig(got["copy_gbps"])}
     if args.device == "cuda":
         line.update(fma_peak_share=round(got["fma_peak_share"], 4),
                     copy_peak_share=round(got["copy_peak_share"], 4),

@@ -9,6 +9,11 @@ single-cell stencil reach (binsize >= cutneigh) and any capacity
 C <= cells.MAX_CAPACITY. On a CPU tensor the closures take the plain
 versions (ops/eam_grid.py); on a CUDA tensor they launch the kernels or
 raise.
+
+in_cut_lists and list_steps are the plain mirror of the kernels' pair
+lists (csrc/cell_stage.cuh: the pruned stage, then one list of in-cut
+candidates per lane), for the tests and for chip_smoke.py's candidate
+counts; no force path calls them.
 """
 
 from __future__ import annotations
@@ -19,14 +24,17 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..cells import _SENTINEL_BASE, MAX_CAPACITY, CellGeometry
+from ..cells import MAX_CAPACITY, VALID_BELOW, CellGeometry
 from ..eam_file import PairPolys
 from .eam import EAMTables
 from .eam_grid import make_eam_pair_grid, make_eam_rho_grid, two_pass_force
-from .pairgrid import halo_extent
+from .pairgrid import halo_extent, kept_candidates, walk_candidates
 
 # Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = {"eam_rho": 0, "eam_force": 0}
+# csrc/eam_force.cu kStageCells (the stage holds STAGE_CELLS * C
+# candidates), csrc/cell_stage.cuh kListLen and kListStep
+STAGE_CELLS, LIST_LEN, LIST_STEP = 9, 64, 8
 
 # csrc/eam_force.cu's PairParams layout
 _MAX_BODY, _MERGED_N, _ROW_N, _MAX_ROWS = 25, 8, 4, 4
@@ -133,7 +141,7 @@ def make_eam_rho_cuda(geom: CellGeometry, tables: EAMTables,
             x.data_ptr(), rho.data_ptr(), fp.data_ptr(),
             embed.data_ptr() if evflag else None, frho.data_ptr(),
             tables.nrho, rdrho, ctypes.addressof(params), nbody, *grid,
-            0.5 * _SENTINEL_BASE, int(evflag),
+            VALID_BELOW, int(evflag),
             torch.cuda.current_stream(x.device).cuda_stream)
         LAUNCHES["eam_rho"] += 1
         _build.check(rc, "eam_rho_launch")
@@ -169,7 +177,7 @@ def make_eam_pair_cuda(geom: CellGeometry, tables: EAMTables,
             eptr = vptr = None
         rc = _build.lib().eam_force_launch(
             x.data_ptr(), fp.data_ptr(), f.data_ptr(), eptr, vptr,
-            ctypes.addressof(params), nbody, *grid, int(evflag),
+            ctypes.addressof(params), nbody, *grid, VALID_BELOW, int(evflag),
             torch.cuda.current_stream(x.device).cuda_stream)
         LAUNCHES["eam_force"] += 1
         _build.check(rc, "eam_force_launch")
@@ -187,3 +195,94 @@ def make_eam_force_cuda(geom: CellGeometry, tables: EAMTables,
     ValueError for what the kernels do not take."""
     return two_pass_force(make_eam_rho_cuda(geom, tables, dtype, device),
                           make_eam_pair_cuda(geom, tables, dtype, device))
+
+
+def in_cut_lists(geom: CellGeometry, x: torch.Tensor, cutsq: float,
+                 valid_below: float = VALID_BELOW,
+                 chunk: int = 1024) -> torch.Tensor:
+    """(ncells, C, 27*C) bool in walk order: for each cell and own slot,
+    the candidates on the slot's list in the EAM kernels, i.e. the kept
+    ones (pairgrid.kept_candidates) within the cutoff of a valid own atom,
+    rsq < cutsq rounded in x's dtype, the slot itself left out. The walk
+    positions of a list are its entries in list order. Computed `chunk`
+    cells at a time."""
+    n, C = geom.ncells, geom.capacity
+    keep = kept_candidates(geom, x, cutsq, valid_below)
+    cand, _ = walk_candidates(geom, x)
+    own = x.reshape(3, n, C)
+    lists = torch.zeros((n, C, 27 * C), dtype=torch.bool, device=x.device)
+    slot = torch.arange(C, device=x.device)
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, min(n, c0 + chunk))
+        d = own[:, sl, :, None] - cand[:, sl, None, :]
+        rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        got = ((rsq < cutsq) & (own[0, sl] < valid_below)[..., None]
+               & keep[sl, None, :])
+        got[:, slot, 13 * C + slot] = False       # the atom itself
+        lists[sl] = got
+    return lists
+
+
+def list_steps(geom: CellGeometry, lists: torch.Tensor, keep: torch.Tensor,
+               chunk: int = 1024):
+    """(steps, any_lane): per cell, the warp-steps of the EAM kernels' pair
+    functions. steps runs the lists as csrc/cell_stage.cuh does: the
+    stage of STAGE_CELLS * C candidates is handed over whenever its next
+    32-wide step might not fit; within a handover the lanes' lists are
+    run (their longest length) whenever one might pass LIST_LEN before the
+    next LIST_STEP candidates, and at the end. any_lane counts, as the
+    first design's kernels ran them, the candidates inside the cutoff for
+    any lane of a 32-slot group. lists: in_cut_lists; keep:
+    pairgrid.kept_candidates. Both (ncells,) int64."""
+    n, C = geom.ncells, geom.capacity
+    W, G = 27 * C, -(-C // 32)
+    cap = STAGE_CELLS * C
+    nbatch, nqb = -(-W // 32), -(-cap // LIST_STEP)
+    dev = keep.device
+    # the stage's handovers: segment of each 32-wide step, in walk order
+    per = torch.zeros((n, nbatch * 32), dtype=torch.int64, device=dev)
+    per[:, :W] = keep
+    per = per.reshape(n, nbatch, 32).sum(dim=2)
+    seg = torch.zeros((n, nbatch), dtype=torch.int64, device=dev)
+    kept = torch.zeros(n, dtype=torch.int64, device=dev)
+    sid = torch.zeros(n, dtype=torch.int64, device=dev)
+    for b in range(nbatch):
+        full = kept > cap - 32
+        sid += full
+        kept = torch.where(full, 0, kept)
+        seg[:, b] = sid
+        kept += per[:, b]
+    seg = seg.repeat_interleave(32, dim=1)[:, :W]
+    nseg = int(sid.max()) + 1
+    # each kept candidate's stage index q within its handover
+    k64 = keep.long()
+    in_seg = torch.zeros((n, nseg), dtype=torch.int64, device=dev)
+    in_seg.scatter_add_(1, seg, k64)
+    base = torch.cumsum(in_seg, dim=1) - in_seg
+    q = torch.cumsum(k64, dim=1) - 1 - base.gather(1, seg)
+    block = (seg * nqb + q.clamp(min=0) // LIST_STEP)   # (n, W)
+
+    steps = torch.zeros(n, dtype=torch.int64, device=dev)
+    any_lane = torch.zeros(n, dtype=torch.int64, device=dev)
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, min(n, c0 + chunk))
+        m = sl.stop - sl.start
+        lanes = torch.zeros((m, G * 32, W), dtype=torch.int64, device=dev)
+        lanes[:, :C] = lists[sl]
+        any_lane[sl] = (lanes.reshape(m, G, 32, W).amax(dim=2)
+                        .sum(dim=(1, 2)))
+        cnt = torch.zeros((m, G * 32, nseg * nqb), dtype=torch.int64,
+                          device=dev)
+        cnt.scatter_add_(2, block[sl, None, :].expand(m, G * 32, W), lanes)
+        cnt = cnt.reshape(m, G, 32, nseg, nqb)
+        got = torch.zeros((m, G), dtype=torch.int64, device=dev)
+        for s_ in range(nseg):
+            length = torch.zeros((m, G, 32), dtype=torch.int64, device=dev)
+            for b in range(nqb):
+                run = (length > LIST_LEN - LIST_STEP).any(dim=2)
+                got += torch.where(run, length.amax(dim=2), 0)
+                length = torch.where(run[..., None], 0, length)
+                length += cnt[:, :, :, s_, b]
+            got += length.amax(dim=2)
+        steps[sl] = got.sum(dim=1)
+    return steps, any_lane

@@ -15,9 +15,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..cells import CellGeometry
+from ..cells import VALID_BELOW, CellGeometry
 from .lj import LJParams
-from .lj_cuda import VALID_BELOW, check_lj_kernel_inputs
+from .lj_cuda import check_lj_kernel_inputs
 from .lj_step import make_lj_step_plain
 
 # Kernel launches since import (or since a caller reset it to 0).

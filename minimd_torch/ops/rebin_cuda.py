@@ -5,9 +5,10 @@ The kernel does the placement, with the contract of the plain
 cells.rebin_pull: pull(cid, chans) -> (outs, counts, cap_overflow),
 bit-identical to it. The elementwise work around it (wrap, cell id,
 movement guard, sentinels on unoccupied slots) stays plain torch, shared
-with the plain path through cells.rebin_local. On a CPU tensor the pull
-takes the plain version; on a CUDA tensor it launches the kernel or
-raises.
+with the plain path through cells.rebin_local, on constants built once
+per geometry on the device (cells.RebinConstants), so a rebin makes no
+host-to-device copy. On a CPU tensor the pull takes the plain version;
+on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..cells import MAX_CAPACITY, CellGeometry, rebin_local, rebin_pull
+from ..cells import (MAX_CAPACITY, CellGeometry, RebinConstants,
+                     rebin_local, rebin_pull)
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
@@ -23,14 +25,15 @@ LAUNCHES = 0
 
 def make_rebin_cuda(geom: CellGeometry, device="cuda"):
     """Returns rebin(x, v, typ) -> (x, v, typ, overflow), the contract of
-    cells.rebin_local. Its placement core is `rebin.pull`."""
-    del device  # outputs follow the inputs' device
+    cells.rebin_local, for float32 positions on `device`. Its placement
+    core is `rebin.pull`."""
     if min(geom.nb) < 3:
         raise ValueError(f"the pull rebin needs min(nb) >= 3, got {geom.nb}")
     if geom.capacity > MAX_CAPACITY:
         raise ValueError(f"capacity {geom.capacity} > {MAX_CAPACITY}")
     nbx, nby, nbz = geom.nb
     C, M, ncells = geom.capacity, geom.nslots, geom.ncells
+    consts = RebinConstants.build(geom, torch.float32, device)
 
     def pull(cid, chans):
         global LAUNCHES
@@ -59,7 +62,7 @@ def make_rebin_cuda(geom: CellGeometry, device="cuda"):
         return outs, counts, cap_ovf
 
     def rebin(x, v, typ):
-        return rebin_local(x, v, typ, geom, pull=pull)
+        return rebin_local(x, v, typ, geom, pull=pull, consts=consts)
 
     rebin.pull = pull
     return rebin

@@ -6,13 +6,19 @@ sequence, ref/integrate.cpp:70-207 / ref/ljs.cpp:385-468), LJ and EAM.
 never waits for it: the thermo trace and the rebin overflow counts stay
 in a device tensor until the one host sync at the end of the run.
 
-The device decides the path. On CUDA: the LJ kernel (ops/lj_cuda.py) or
-the two EAM kernels (ops/eam_cuda.py) and, when every axis has at least 3
+The device decides the path (force_path, the JAX package's own choice
+with the card in the place of the TPU). On CUDA, in float32 with stencil
+reach 1: the LJ kernel (ops/lj_cuda.py, type-uniform parameters) or the
+two EAM kernels (ops/eam_cuda.py) and, when every axis has at least 3
 cells, the pull rebin kernel (ops/rebin_cuda.py); smaller grids use the
-sort-based rebin_lean, the JAX package's own geometry rule. On the CPU:
-the plain LJ version (ops/lj_grid.py), the exact-spline EAM force
-(ops/eam.py, what the JAX package runs on its CPU) and cells.rebin_local /
-rebin_lean, in any dtype.
+sort-based rebin_lean, the JAX package's own geometry rule. Outside that
+envelope the card runs what the JAX package runs on its accelerator: the
+plain LJ grid (ops/lj_grid.py) for float64, reach > 1 or per-type
+tables; the plain EAM grid (ops/eam_grid.py) for float32 with reach > 1;
+the exact-spline EAM force (ops/eam.py) for float64. On the CPU: the
+plain LJ grid, the exact-spline EAM force (what the JAX package runs on
+its CPU) and cells.rebin_local / rebin_lean, in any dtype. The rebin
+glue's constants are built once per geometry on the device.
 
 fused_step=True (LJ, f32, thermo_nstat > 0, as in the JAX package) runs
 each interval's plain steps through the fused step (ops/lj_step_cuda.py on
@@ -46,9 +52,32 @@ from .state import MDState, init_state
 from .units import ThermoScales, thermo_scales
 
 
-def _not_yet(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to minimd_torch yet (ROADMAP {item})")
+def force_path(forcetype: int, *, cuda: bool, dtype, reach: int,
+               uniform: bool = True, half_neigh: bool = False) -> str:
+    """The force path a Simulation takes, picked as minimd_tpu/sim.py
+    picks it (`make_force` in from_arrays, `_use_pallas`), with the card
+    in the place of the TPU:
+
+    - "lj_half" / "eam_half": half_neigh, plain torch on every device;
+    - "lj_cuda": the LJ kernel, for float32, type-uniform parameters and
+      stencil reach 1 on the card; else "lj_grid", the plain grid;
+    - "eam_cuda": the EAM kernels, for float32 and reach 1 on the card;
+      "eam_grid" (the kernels' plain versions) for float32 with reach > 1
+      on the card; else "eam", the exact-spline force (float64, or the
+      CPU)."""
+    if forcetype == FORCE_LJ:
+        if half_neigh:
+            return "lj_half"
+        if cuda and dtype == torch.float32 and uniform and reach == 1:
+            return "lj_cuda"
+        return "lj_grid"
+    if forcetype == FORCE_EAM:
+        if half_neigh:
+            return "eam_half"
+        if cuda and dtype == torch.float32:
+            return "eam_cuda" if reach == 1 else "eam_grid"
+        return "eam"
+    raise ValueError(f"unknown forcetype {forcetype}")
 
 
 @dataclasses.dataclass
@@ -190,55 +219,52 @@ class Simulation:
             self.step_fn, self.seed_fn = make_step(
                 geom, self.params, self.inp.dt, self.dtforce, self.dtype,
                 self.device)
-        if min(geom.nb) < 3:
-            # the +-1 pull would alias cells: sort-based placement
-            self.rebin_fn = functools.partial(cells.rebin_lean, geom=geom)
-        elif cuda and self.dtype == torch.float32:
-            # (a float64 state on the card, the half path's, takes the
-            # plain rebin, as the JAX package's Pallas pull is f32 only)
+        if cuda and self.dtype == torch.float32 and min(geom.nb) >= 3:
             from .ops.rebin_cuda import make_rebin_cuda
             self.rebin_fn = make_rebin_cuda(geom, self.device)
         else:
-            self.rebin_fn = functools.partial(cells.rebin_local, geom=geom)
+            # under 3 cells on an axis the +-1 pull would alias cells:
+            # sort-based placement; a float64 state on the card takes the
+            # plain pull, as the JAX package's Pallas pull is f32 only.
+            # The glue's constants are built once per geometry.
+            rebin = cells.rebin_lean if min(geom.nb) < 3 else \
+                cells.rebin_local
+            self.rebin_fn = functools.partial(
+                rebin, geom=geom, consts=cells.RebinConstants.build(
+                    geom, self.dtype, self.device))
 
     def _make_force(self, geom: cells.CellGeometry, cuda: bool):
-        """(force_ev, force_noev) for a geometry on this device."""
-        if self.half_neigh:
-            # the JAX half path is XLA: plain torch on every device, in
-            # any dtype and stencil reach
-            if self.tables is not None:
-                from .ops.eam_half import make_eam_force_half
-                return make_eam_force_half(geom, self.tables, self.dtype,
-                                           self.device)
+        """(force_ev, force_noev) for a geometry on this device, on the
+        path that force_path picks."""
+        if (cuda and self.fused_step
+                and geom.capacity > cells.MAX_CAPACITY):
+            raise NotImplementedError(
+                f"a fused-step CUDA run with capacity > {cells.MAX_CAPACITY} "
+                "is not ported to minimd_torch yet (ROADMAP queue 2 item 6)")
+        path = force_path(
+            self.inp.forcetype, cuda=cuda, dtype=self.dtype,
+            reach=halo_extent(geom), half_neigh=self.half_neigh,
+            uniform=self.params is None or self.params.uniform)
+        args = (geom, self.params if self.tables is None else self.tables,
+                self.dtype, self.device)
+        if path == "lj_half":
             from .ops.lj_half import make_lj_force_half
-            return make_lj_force_half(geom, self.params, self.dtype,
-                                      self.device,
-                                      ghost_newton=self.ghost_newton)
-        if cuda:
-            item = "queue 2 items 1, 3-4" if self.tables else "queue 2 item 1"
-            if self.dtype != torch.float32:
-                raise _not_yet("a float64 CUDA run", item)
-            if halo_extent(geom) != 1:
-                raise _not_yet("a CUDA run with binsize < cutneigh (h > 1)",
-                               item)
-            if self.fused_step and geom.capacity > cells.MAX_CAPACITY:
-                raise _not_yet(f"a fused-step CUDA run with capacity > "
-                               f"{cells.MAX_CAPACITY}", "queue 2 item 6")
-        if self.tables is not None:
-            if cuda:
-                from .ops.eam_cuda import make_eam_force_cuda
-                return make_eam_force_cuda(geom, self.tables, self.dtype,
-                                           self.device)
-            from .ops.eam import make_eam_force
-            force = make_eam_force(geom, self.tables, self.dtype, self.device)
-            return force, force
-        if cuda and not self.params.uniform:
-            raise _not_yet("per-type LJ tables on CUDA", "queue 2 item 1")
-        if cuda:
-            from .ops.lj_cuda import make_lj_force_cuda as make_force
+            return make_lj_force_half(*args, ghost_newton=self.ghost_newton)
+        if path == "eam_half":
+            from .ops.eam_half import make_eam_force_half as make
+        elif path == "lj_cuda":
+            from .ops.lj_cuda import make_lj_force_cuda as make
+        elif path == "lj_grid":
+            from .ops.lj_grid import make_lj_force_grid as make
+        elif path == "eam_cuda":
+            from .ops.eam_cuda import make_eam_force_cuda as make
+        elif path == "eam_grid":
+            from .ops.eam_grid import make_eam_force_grid as make
         else:
-            from .ops.lj_grid import make_lj_force_grid as make_force
-        return make_force(geom, self.params, self.dtype, self.device)
+            from .ops.eam import make_eam_force
+            force = make_eam_force(*args)
+            return force, force
+        return make(*args)
 
     def _compute_initial_force(self):
         f, eng, vir = self.force_fn(self.state.x, self.state.typ)

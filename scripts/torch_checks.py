@@ -23,6 +23,15 @@
         commit unpacked with git archive), so that one call can run parent
         and change in alternating processes.
 
+    python scripts/torch_checks.py glue [--repo DIR]
+        where the card waits at 131k, for the LJ and the EAM deck (f32,
+        the default kernels): chip_smoke.py's [profile-*] and
+        [idle-split-*] lines (the idle of run() split into its part per
+        run and its part in the step loop, and the host's against the
+        card's time per rebin and per plain step) and the CLI's --timed
+        t_force and t_neigh. --repo as for eam-rate, so that one call can
+        run parent and change in turns.
+
     python scripts/torch_checks.py lj-parity --repo DIR [--runs 5]
         this checkout's kernels against DIR's (a parent commit unpacked
         with git archive) in four processes in turns, DIR, this, this, DIR
@@ -31,11 +40,16 @@
         shapes 4k, 131k, 864k, cap64, cap512 and s6_nb2: lj_force f, eng,
         vir (ev and noev); lj_step x', w' and each step's eng, vir, vsq
         after 4 chained ev steps, and x', w' of one noev step; eam_rho,
-        eam_force and the gather-table pair on the EAM deck (ev and noev);
-        then times lj_force and lj_step (noev and ev) at 131k and 864k and
-        the LJ main path (plain and fused_step, 131k run(200) and 864k
-        run(100)) `runs` times each. The outputs must hash alike across
-        all four processes.
+        eam_force and the gather-table pair on the EAM deck (ev and noev),
+        also on chip_smoke.py's EAM lattice of twice the density ("dense",
+        where the EAM kernels hand their stage and lists over early);
+        and the final x, v and thermo rows of a real run from each deck at
+        131k (LJ run(200), EAM run(100): a thermalised state whose cells
+        can hold more than 32 atoms). Then it times lj_force and lj_step,
+        eam_rho and eam_force (noev and ev) at 131k and 864k, and the main
+        paths `runs` times each: LJ plain and fused_step (131k run(200),
+        864k run(100)) and EAM (131k run(100)). The outputs must hash
+        alike across all four processes.
 
 Every line is printed as "[name] ..." and the last line is a JSON object
 of the numbers.
@@ -167,6 +181,33 @@ def eam_rate(runs=10, steps=100):
     return out
 
 
+def glue(steps=(200, 100)):
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import device_share, idle_split
+    from minimd_torch import cli
+
+    out = {}
+    for deck, n in zip(("lj", "eam"), steps):
+        sim = _sim(deck, 32)
+        device_share(f"{deck}-131k", sim, n)
+        out[deck] = idle_split(f"{deck}-131k", sim, n)
+        del sim
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["-i", str(HERE / f"inputs/in.{deck}.miniMD"),
+                      "--timed"])
+        perf = next(ln for ln in buf.getvalue().splitlines()
+                    if "PERF_SUMMARY" in ln and not ln.startswith("#"))
+        t_total, t_force, t_neigh = (float(v) for v in perf.split()[4:7])
+        print(f"[timed-{deck}-131k] t_total={t_total:.4f}s t_force="
+              f"{t_force:.4f}s t_neigh={t_neigh:.4f}s", flush=True)
+        out[deck]["timed_s"] = (t_total, t_force, t_neigh)
+    return out
+
+
 def _digest(*outs):
     """sha256 (16 hex digits) of the bytes of the tensors in outs."""
     h = hashlib.sha256()
@@ -181,19 +222,37 @@ def lj_parity_worker(runs):
     import torch
 
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (LJ_SHAPES, cuda_ms, lattice, lj_params,
-                            rebinned, timed_run)
+    from chip_smoke import (EAM_RHO_SCALE, EAM_SHAPES, LJ_SHAPES, cuda_ms,
+                            lattice, lj_params, rebinned, timed_run)
     from minimd_torch import cells
-    from minimd_torch.config import parse_deck
     from minimd_torch.ops import eam_cuda, eam_rows_cuda
     from minimd_torch.ops.eam import EAMTables
     from minimd_torch.ops.lj_cuda import make_lj_force_cuda
     from minimd_torch.ops.lj_step_cuda import make_lj_step_cuda
-    from minimd_torch.sim import Simulation
 
     out = {"hash": {}, "ms": {}, "rate": {}}
     hashes = out["hash"]
     tables = EAMTables.from_funcfl()
+
+    def eam_hashes(label, s, nbins, cap, rho_scale=1.0):
+        """Hash both EAM kernel pairs' outputs (ev and noev) on the EAM
+        lattice of one shape; returns its geometry."""
+        _, geom, st, xp = lattice(s, nbins, cap, deck="eam", kick=0.08,
+                                  rho_scale=rho_scale)
+        x = rebinned(geom, st, xp)
+        for kind, rho_fn, pair_fn in (
+                ("eam", eam_cuda.make_eam_rho_cuda,
+                 eam_cuda.make_eam_pair_cuda),
+                ("eam_rows", eam_rows_cuda.make_eam_rho_rows_cuda,
+                 eam_rows_cuda.make_eam_pair_rows_cuda)):
+            k_rho, k_pair = rho_fn(geom, tables), pair_fn(geom, tables)
+            for ev in (True, False):
+                tag = f"{kind} {label} {'ev' if ev else 'noev'}"
+                rho, fp, embed = k_rho(x, ev)
+                hashes[f"{tag} rho"] = _digest(rho, fp, embed)
+                hashes[f"{tag} force"] = _digest(*k_pair(x, fp, ev))
+        return geom
+
     for label, (s, nbins, cap) in LJ_SHAPES.items():
         inp, geom, st, xp = lattice(s, nbins, cap)
         rebin = cells.rebin_local if min(geom.nb) >= 3 else cells.rebin_lean
@@ -212,24 +271,26 @@ def lj_parity_worker(runs):
         hashes[f"lj_step {label} noev"] = _digest(
             *k_step(x1.clone(), w1.clone(), False)[:2])
         lj_grid = f"nb={geom.nb} C={geom.capacity}"
-        _, geom, st, xp = lattice(s, nbins, cap, deck="eam", kick=0.08)
-        x = rebinned(geom, st, xp)
-        for kind, rho_fn, pair_fn in (
-                ("eam", eam_cuda.make_eam_rho_cuda,
-                 eam_cuda.make_eam_pair_cuda),
-                ("eam_rows", eam_rows_cuda.make_eam_rho_rows_cuda,
-                 eam_rows_cuda.make_eam_pair_rows_cuda)):
-            k_rho, k_pair = rho_fn(geom, tables), pair_fn(geom, tables)
-            for ev in (True, False):
-                tag = f"{kind} {label} {'ev' if ev else 'noev'}"
-                rho, fp, embed = k_rho(x, ev)
-                hashes[f"{tag} rho"] = _digest(rho, fp, embed)
-                hashes[f"{tag} force"] = _digest(*k_pair(x, fp, ev))
+        geom = eam_hashes(label, s, nbins, cap)
         print(f"[lj-parity-hash] {label} LJ {lj_grid}, EAM nb={geom.nb} "
               f"C={geom.capacity}: "
               f"{sum(1 for k in hashes if f' {label} ' in k)} outputs",
               flush=True)
         torch.cuda.empty_cache()
+    for label, scale in EAM_RHO_SCALE.items():
+        geom = eam_hashes(label, *EAM_SHAPES[label], rho_scale=scale)
+        print(f"[lj-parity-hash] {label} EAM nb={geom.nb} C={geom.capacity}"
+              f": {sum(1 for k in hashes if f' {label} ' in k)} outputs",
+              flush=True)
+    for deck, steps in (("lj", 200), ("eam", 100)):
+        sim = _sim(deck, 32)
+        trace = sim.run(steps)
+        rows = torch.tensor(sim.thermo_trace(trace), dtype=torch.float64)
+        hashes[f"run {deck} 131k run({steps})"] = _digest(
+            sim.state.x, sim.state.v, rows)
+        print(f"[lj-parity-hash] {deck} 131k run({steps}): rows "
+              f"{rows.tolist()}", flush=True)
+        del sim
     for label, s, iters in (("131k", 32, 50), ("864k", 60, 20)):
         inp, geom, st, xp = lattice(s)
         x, v, typ, _ = cells.rebin_local(xp, st.v, st.typ, geom)
@@ -244,20 +305,32 @@ def lj_parity_worker(runs):
                 ("lj_step", lambda: k_step(x1, w1, False, out=spare)),
                 ("lj_step_ev", lambda: k_step(x1, w1, True, out=spare))):
             out["ms"][f"{name} {label}"] = cuda_ms(fn, iters)
+        _, geom, st, xp = lattice(s, deck="eam", kick=0.08)
+        x = rebinned(geom, st, xp)
+        k_rho = eam_cuda.make_eam_rho_cuda(geom, tables)
+        k_pair = eam_cuda.make_eam_pair_cuda(geom, tables)
+        fp = k_rho(x, False)[1]
+        for name, fn in (
+                ("eam_rho", lambda: k_rho(x, False)),
+                ("eam_rho_ev", lambda: k_rho(x, True)),
+                ("eam_force", lambda: k_pair(x, fp, False)),
+                ("eam_force_ev", lambda: k_pair(x, fp, True))):
+            out["ms"][f"{name} {label}"] = cuda_ms(fn, iters)
         print(f"[lj-parity-time] {label}: " + " ".join(
             f"{k.split()[0]}={v:.4f}ms" for k, v in out["ms"].items()
             if k.endswith(label)), flush=True)
-    for label, s, steps in (("131k", 32, 200), ("864k", 60, 100)):
-        inp = parse_deck(HERE / "inputs/in.lj.miniMD")
-        inp.nx = inp.ny = inp.nz = s
-        for path in ("plain", "fused"):
-            sim = Simulation.from_input(inp, device="cuda",
-                                        fused_step=path == "fused")
+        torch.cuda.empty_cache()
+    for deck, label, s, steps, paths in (
+            ("lj", "131k", 32, 200, ("plain", "fused")),
+            ("lj", "864k", 60, 100, ("plain", "fused")),
+            ("eam", "131k", 32, 100, ("plain",))):
+        for path in paths:
+            sim = _sim(deck, s, fused_step=path == "fused")
             rates = [timed_run(sim, steps)[2] for _ in range(runs)]
             if sim.state.overflow or sim._regrows:
-                raise AssertionError(f"lj {label} {path}: regrew")
-            out["rate"][f"lj {label} {path}"] = rates
-            print(f"[lj-parity-rate] lj {label} {path}: median "
+                raise AssertionError(f"{deck} {label} {path}: regrew")
+            out["rate"][f"{deck} {label} {path}"] = rates
+            print(f"[lj-parity-rate] {deck} {label} {path}: median "
                   f"{statistics.median(rates):.3f} Matom-steps/s of "
                   + " ".join(f"{r:.3f}" for r in rates), flush=True)
             del sim
@@ -312,10 +385,11 @@ def lj_parity(repo, runs):
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("what", choices=["gates-f64", "half-memory", "eam-rate",
-                                    "lj-parity"])
+                                    "glue", "lj-parity"])
     p.add_argument("--repo", default=None,
-                   help="eam-rate, lj-parity: import minimd_torch from this "
-                   "checkout (lj-parity: the one the change is held against)")
+                   help="eam-rate, glue, lj-parity: import minimd_torch "
+                   "from this checkout (lj-parity: the one the change is "
+                   "held against)")
     p.add_argument("--worker", action="store_true",
                    help="lj-parity: one process of the four")
     p.add_argument("--runs", type=int, default=None)
@@ -344,6 +418,8 @@ def main():
         got = half_memory(tuple(args.s))
     elif args.what == "eam-rate":
         got = eam_rate(args.runs or 10)
+    elif args.what == "glue":
+        got = glue()
     else:
         got = lj_parity_worker(args.runs or 5)
     print(json.dumps({args.what: got, "repo": str(args.repo or HERE)}))

@@ -104,6 +104,32 @@ def test_rebin_local_bit_identical(nbins, C):
     assert torch.equal(xk, xt) and torch.equal(vk, vt) and torch.equal(tk, tt)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nbins", [None, (2, 2, 2)])
+def test_rebin_constants_match_per_call_form(nbins, dtype):
+    """The rebin glue on constants built once per geometry
+    (cells.RebinConstants, what Simulation and make_rebin_cuda hold) is
+    bit for bit the per-call form, which builds them from the host each
+    call; a second call on the same constants too, and constants of
+    another dtype are refused."""
+    geom, xd, v, typ = _perturbed(nbins)
+    x, vt, tt = _t(xd).to(dtype), _t(v).to(dtype), _t(typ)
+    rebin = cells.rebin_local if nbins is None else cells.rebin_lean
+    consts = cells.RebinConstants.build(geom, dtype, "cpu")
+    want = rebin(x, vt, tt, geom)
+    for _ in range(2):
+        got = rebin(x, vt, tt, geom, consts=consts)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    cid, xs = cells.coord_to_cell(cells.pbc_wrap(x, consts.prd), geom,
+                                  consts)
+    cid0, xs0 = cells.coord_to_cell(cells.pbc_wrap(x, geom.prd), geom)
+    assert torch.equal(cid, cid0) and torch.equal(xs, xs0)
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    with pytest.raises(ValueError, match="rebin constants"):
+        rebin(x, vt, tt, geom,
+              consts=cells.RebinConstants.build(geom, other, "cpu"))
+
+
 def test_rebin_lean_keeps_atoms_on_small_grid():
     """nb < 3 takes the sort-based rebin: the same atoms, in cell order."""
     geom, xd, v, typ = _perturbed((2, 2, 2))

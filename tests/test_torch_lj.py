@@ -2,7 +2,7 @@
 version (ops/lj_grid.py, also what ops/lj_cuda.py takes for a CPU tensor)
 against the JAX grid path in f64 and the JAX Pallas kernel (interpret
 mode) in f32; and the plain mirror of the LJ kernels' candidate prune
-(ops/lj_cuda.kept_candidates) against every pair inside the cutoff."""
+(ops/pairgrid.kept_candidates) against every pair inside the cutoff."""
 
 import functools
 
@@ -18,9 +18,10 @@ from minimd_tpu.ops.lj import LJParams as JLJParams
 from minimd_tpu.ops.lj_grid import make_lj_force_grid as jax_force_grid
 from minimd_torch import cells
 from minimd_torch.ops.lj import LJParams
-from minimd_torch.ops.lj_cuda import (VALID_BELOW, kept_candidates,
-                                      make_lj_force_cuda, walk_candidates)
+from minimd_torch.cells import VALID_BELOW
+from minimd_torch.ops.lj_cuda import make_lj_force_cuda
 from minimd_torch.ops.lj_grid import make_lj_force_grid
+from minimd_torch.ops.pairgrid import kept_candidates, walk_candidates
 from minimd_torch.sim import Simulation
 from minimd_torch.state import init_state
 

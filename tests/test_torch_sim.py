@@ -2,6 +2,7 @@
 statistical acceptance, the whole LJ and EAM slices against minimd_tpu
 f64, grow-and-replay, the jax-free import and the CLI."""
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -16,7 +17,8 @@ from minimd_tpu import cells as jcells
 from minimd_tpu.config import builtin_deck
 from minimd_tpu.validate import compare_traces, parse_golden
 from minimd_torch import cli, create
-from minimd_torch.sim import Simulation
+from minimd_torch.config import FORCE_EAM, FORCE_LJ
+from minimd_torch.sim import Simulation, force_path
 from minimd_torch.state import geometry_from_reference, state_from_reference
 
 torch.set_num_threads(2)
@@ -248,3 +250,91 @@ def test_from_input_refuses_unported(what):
     with pytest.raises(ValueError, match="fused_step"):
         Simulation.from_input(_deck(6), device="cpu", fused_step=True,
                               **{what: True})
+
+
+F32, F64 = torch.float32, torch.float64
+# (forcetype, on the card, dtype, stencil reach, uniform LJ, half_neigh):
+# the path minimd_tpu/sim.py picks on its accelerator (card) or CPU:
+# half_neigh first (:177-185 LJ, :203-210 EAM); LJ through the kernel
+# when _use_pallas (:267-282: f32, uniform, reach 1, not the CPU), else
+# lj_grid (:186-189); EAM through the kernel for f32 at reach 1 on the
+# accelerator (:211-227), eam_grid for f32 at reach > 1 there (:228-231),
+# else the exact spline (:232-234)
+FORCE_PATHS = [
+    (FORCE_LJ, True, F32, 1, True, False, "lj_cuda"),
+    (FORCE_LJ, True, F64, 1, True, False, "lj_grid"),
+    (FORCE_LJ, True, F32, 2, True, False, "lj_grid"),
+    (FORCE_LJ, True, F32, 1, False, False, "lj_grid"),
+    (FORCE_LJ, False, F32, 1, True, False, "lj_grid"),
+    (FORCE_LJ, False, F64, 2, False, False, "lj_grid"),
+    (FORCE_LJ, True, F32, 1, True, True, "lj_half"),
+    (FORCE_LJ, False, F64, 1, True, True, "lj_half"),
+    (FORCE_EAM, True, F32, 1, True, False, "eam_cuda"),
+    (FORCE_EAM, True, F32, 2, True, False, "eam_grid"),
+    (FORCE_EAM, True, F64, 1, True, False, "eam"),
+    (FORCE_EAM, True, F64, 2, True, False, "eam"),
+    (FORCE_EAM, False, F32, 1, True, False, "eam"),
+    (FORCE_EAM, False, F64, 2, True, False, "eam"),
+    (FORCE_EAM, True, F32, 1, True, True, "eam_half"),
+]
+
+
+@pytest.mark.parametrize("forcetype,cuda,dtype,reach,uniform,half,want",
+                         FORCE_PATHS)
+def test_force_path_follows_the_jax_selection(forcetype, cuda, dtype, reach,
+                                              uniform, half, want,
+                                              monkeypatch):
+    """Simulation's choice of force path, for each case of
+    minimd_tpu/sim.py; the LJ kernel cases also against the JAX package's
+    own _use_pallas, its backend reported as "tpu" for the card."""
+    got = force_path(forcetype, cuda=cuda, dtype=dtype, reach=reach,
+                     uniform=uniform, half_neigh=half)
+    assert got == want
+    if forcetype == FORCE_LJ and not half:
+        from minimd_tpu import sim as jsim
+        from minimd_tpu.ops.lj import LJParams as JLJParams
+
+        monkeypatch.setattr(jsim.jax, "default_backend",
+                            lambda: "tpu" if cuda else "cpu")
+        inp = _deck(6)
+        prd, x, _, _, _ = create.setup_system(inp)
+        geom = jcells.build_geometry(prd, inp.neigh_cut, x,
+                                     nbins=(3, 3, 3) if reach == 1
+                                     else (6, 6, 6))
+        assert int(np.abs(geom.stencil).max()) == reach
+        eps = [1.0, 1.0, 1.0, 1.0 if uniform else 0.5]
+        params = JLJParams(2, np.array(eps), np.ones(4), np.full(4, 6.25))
+        assert params.uniform == uniform
+        jdtype = jnp.float32 if dtype == F32 else jnp.float64
+        assert jsim.Simulation._use_pallas(geom, params, jdtype, "auto") \
+            == (got == "lj_cuda")
+
+
+def test_card_force_paths_outside_the_kernels():
+    """Simulation._make_force as on the card (cuda=True) builds, outside
+    the kernels' envelope, the plain closures the JAX package runs on its
+    accelerator, and they run here on CPU tensors: float64 LJ on the LJ
+    grid and float32 EAM at stencil reach 2 on the EAM grid, each equal
+    to its plain factory's; a fused step past cells.MAX_CAPACITY stays
+    refused on the card."""
+    from minimd_torch.cells import MAX_CAPACITY
+    from minimd_torch.ops.eam_grid import make_eam_force_grid
+    from minimd_torch.ops.lj_grid import make_lj_force_grid
+
+    lj = Simulation.from_input(_deck(6), dtype=F64, device="cpu")
+    want = make_lj_force_grid(lj.geom, lj.params, F64, "cpu")
+    got = lj._make_force(lj.geom, cuda=True)
+    eam = Simulation.from_input(_deck(6, "eam"), device="cpu",
+                                nbins=(6, 6, 6))
+    assert np.abs(eam.geom.stencil).max() == 2
+    want_eam = make_eam_force_grid(eam.geom, eam.tables, F32, "cpu")
+    got_eam = eam._make_force(eam.geom, cuda=True)
+    for sim, pair in ((lj, zip(got, want)), (eam, zip(got_eam, want_eam))):
+        x, typ = sim.state.x, sim.state.typ
+        for g, w in pair:
+            assert all(torch.equal(a, b) for a, b in zip(g(x, typ),
+                                                         w(x, typ)))
+    fused = Simulation.from_input(_deck(6), device="cpu", fused_step=True)
+    big = dataclasses.replace(fused.geom, capacity=MAX_CAPACITY + 8)
+    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
+        fused._make_force(big, cuda=True)
