@@ -20,7 +20,11 @@ Run from the root of a checkout. Phases, one line each:
    embed energy sum, forces, energy and virial, ev and noev; the fused LJ step on the LJ shapes (one call and
    4 chained calls, ev and noev: x', w', eng, vir, vsq, the input buffer
    unchanged, empty slots copied); the two gather-table EAM kernels on
-   the EAM shapes, with the polynomial kernels' checks;
+   every EAM shape, cap512 and the dense lattice included, with the
+   polynomial kernels' checks (both pairs run the passes of
+   minimd_torch/csrc/eam_pass.cuh: one warp per cell on the pruned stage
+   and per-lane in-cut lists of csrc/cell_stage.cuh, the gather tables a
+   cubic per pair function where the polynomial form runs a Horner);
 4. the 4k/10000-step f32 acceptance gates against tests/golden/4k.lj and
    tests/golden/4k.eam with the reference's statistical criterion
    (validate.compare_traces): LJ and EAM on the default path, LJ through
@@ -44,8 +48,10 @@ Run from the root of a checkout. Phases, one line each:
    once with the polynomial kernels (the default) and once through the
    gather-table kernels (the Simulation's force closures set to
    ops/eam_rows_cuda.py's; no regrow may undo that); timed runs and
-   kernel timings as for LJ, and the EAM kernels' candidates and Horner
-   warp-steps per cell from the plain mirror of their lists;
+   kernel timings as for LJ, and the EAM kernels' candidates and
+   pair-function warp-steps per cell from the plain mirror of their
+   lists (one count for both forms: they share the stage and the f32
+   cutoff);
 7. the micro-probes (minimd_torch/micro.py): fma_chain and copy_add
    against their plain versions, then their own main path, the
    exp_micro.py timing loop at the TPU's rep counts, with launches counted
@@ -136,8 +142,9 @@ LJ_SHAPES = {**SHAPES, "cap512": (10, None, 512)}
 # ENG_TOL, while forces and virial agree as at the other shapes
 # (PERF.md, the LJ pair loop findings)
 LJ_KICK = {"cap512": 0.04}
-# the polynomial EAM kernels also at the largest capacity (their stage of
-# 9*C candidates with fp takes 92 KB of shared memory there, opted in)
+# the EAM kernels (both forms) also at the largest capacity (the force
+# passes' stage of 9*C candidates with fp takes 92 KB of shared memory
+# there, opted in)
 # and on a lattice of twice the deck's density, where a cell keeps more
 # candidates than its stage holds (up to 357 against 9*C - 32 = 328)
 # and atoms have up to 78 pairs in the cutoff against a list of 64: the
@@ -670,14 +677,20 @@ def eam_candidate_counts(label, geom, tables, x, max_share=EAM_KEPT_SHARE):
     pair functions over the lanes' lists and the longest lists (more
     steps than the longest lists: a stage or a list was handed over
     early), against the first design's, which ran them for every
-    candidate inside the cutoff of any lane of a warp. Fails above a
-    kept share of max_share."""
+    candidate inside the cutoff of any lane of a warp. The gather-table
+    kernels stage and list the same candidates at the same f32 cutoff
+    (checked here), so the counts are theirs too. Fails above a kept
+    share of max_share."""
     from minimd_torch.cells import VALID_BELOW
-    from minimd_torch.ops import eam_cuda
+    from minimd_torch.ops import eam_cuda, eam_rows_cuda
     from minimd_torch.ops.pairgrid import kept_candidates, walk_candidates
 
     n, C = geom.ncells, geom.capacity
     cutsq = tables.cut * tables.cut
+    rows_cutsq = eam_rows_cuda.row_map(tables.rows, tables.cut).cutsq
+    if rows_cutsq != eam_cuda.pair_params(tables.polys, tables.cut)[0].cutsq:
+        raise AssertionError("the two EAM forms' kernels cut at different "
+                             "f32 cutsq; the mirror counts one of them")
     keep = kept_candidates(geom, x, cutsq, VALID_BELOW)
     lists = eam_cuda.in_cut_lists(geom, x, cutsq)
     steps, any_lane = eam_cuda.list_steps(geom, lists, keep)
@@ -699,7 +712,10 @@ def eam_candidate_counts(label, geom, tables, x, max_share=EAM_KEPT_SHARE):
           f"{got['kept_share']:.3f}) in-cut={got['in_cut']:.1f}; Horner "
           f"warp-steps per cell {got['steps']:.1f} on the lists (longest "
           f"list {got['longest_list']:.1f}) against "
-          f"{got['steps_any_lane']:.1f} on any lane's cut (first design)")
+          f"{got['steps_any_lane']:.1f} on any lane's cut (first design); "
+          f"gather-table kernels: kept={got['kept']:.1f}, cubic warp-steps "
+          f"per cell {got['steps']:.1f} against {got['steps_any_lane']:.1f}"
+          f" (the same stage and lists, cutsq {rows_cutsq:.9g} in both)")
     del keep, lists
     if not got["kept_share"] <= max_share:
         raise AssertionError(f"eam candidates {label}: the prune keeps "
@@ -1267,8 +1283,6 @@ def main():
         if label in EAM_RHO_SCALE:
             eam_candidate_counts(label, geom, tables, x, max_share=1.0)
         for kind, compare in (("", compare_eam), ("_rows", compare_eam_rows)):
-            if kind and label not in SHAPES:
-                continue
             e_rho, e_f = compare(label, geom, tables, x, st.typ)
             max_err[f"eam_rho{kind}"] = max(max_err[f"eam_rho{kind}"], e_rho)
             max_err[f"eam_force{kind}"] = max(max_err[f"eam_force{kind}"],

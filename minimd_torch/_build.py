@@ -51,8 +51,8 @@ _SIGNATURES = {
     "eam_rho_rows_launch": [_P] * 5 + [_I, _F, _P, _P] + [_I] * 4 + [
         _F] * 4 + [_I, _P],
     # x, fp, f, eng, vir, tab, rowmap, nbx, nby, nbz, C, prdx, prdy, prdz,
-    # evflag, stream
-    "eam_force_rows_launch": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    # valid_below, evflag, stream
+    "eam_force_rows_launch": [_P] * 7 + [_I] * 4 + [_F] * 4 + [_I, _P],
     # x, y, n, reps, stream (the micro-probes)
     "fma_chain_launch": [_P, _P, ctypes.c_longlong, _I, _P],
     "copy_add_launch": [_P, _P, ctypes.c_longlong, _I, _P],

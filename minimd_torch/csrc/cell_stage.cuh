@@ -9,7 +9,7 @@
 //    drifted out of the cell since the last rebin are inside it), and lane
 //    k < 27 keeps the k-th neighbor cell of the walk;
 //  - stage_step: one 32-wide step of the walk over the 27 neighbor cells
-//    in for_each_neighbor's order (dz, dy, dx, slot). A candidate is kept
+//    in neighbor_cell's order (dz, dy, dx, slot). A candidate is kept
 //    only if its slot is valid and its squared distance to the box, image
 //    shift added, is at most cutsq * kKeepMargin: the margin is hundreds of
 //    f32 roundings, so no pair inside the cutoff is ever dropped. Kept

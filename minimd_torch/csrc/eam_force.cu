@@ -32,37 +32,21 @@
 // any of its 32 lanes: ~213 Horner warp-steps per cell where no lane has
 // more than ~42 pairs.
 //
-// What this design does about it, per block (one cell, one warp; the
-// lanes take the cell's slots 32 at a time), with cell_stage.cuh:
-//  1. the warp reduces the bounding box of the cell's valid own atoms;
-//  2. it walks the 27 neighbor cells in for_each_neighbor's order and
-//     stages, compacted in walk order, only the valid candidates within
-//     cutsq * (1 + 2^-10) of the box (~216 of 1,080 at C = 40), with their
-//     fp in the force pass and the slot tag that marks the own atom;
-//  3. each valid lane tests the staged candidates with the plain walk's
-//     exact rsq and lists its in-cut ones (16-bit stage indices, walk
-//     order) in shared memory;
-//  4. the lanes run the pair functions over their lists in lockstep, a
-//     lane whose list is shorter idle: ~42 Horner warp-steps per cell.
-// A 32-slot group with no atom skips 2-4 and writes rho = 0, fp = F'(0),
-// f = 0. The lists hold every in-cut pair in the plain walk's order, and
-// the pair arithmetic is the first design's, with the contractions nvcc
-// chose there written out (__fmaf_rn, read off its SASS), so rho, fp, f
-// and every lane's sums are bit-identical to a walk of all 27*C slots;
-// the per-cell partials add the groups' warp sums in block_sum's order.
-// Each lane owns its atom's sums: no atomics, deterministic. The
-// embedding epilogue (eam_embed.cuh, shared with eam_rows.cu) is written
-// with explicitly rounded operations, so fp is bit-identical to the plain
-// `embedding` (ops/eam_grid.py) of the same rho; the pair sums differ
-// from the plain version by f32 rounding.
+// What this design does about it: the passes of eam_pass.cuh (one warp
+// per cell; only the valid candidates near the cell's atoms staged,
+// ~216 of 1,080 at C = 40; per-lane lists of the in-cut ones, so ~42
+// Horner warp-steps per cell). The pair arithmetic is the first
+// design's, with the contractions nvcc chose there written out
+// (__fmaf_rn, read off its SASS), so rho, fp, f and every lane's sums are
+// bit-identical to a walk of all 27*C slots; the pair sums differ from
+// the plain version (ops/eam_grid.py) by f32 rounding.
 //
 // Not done yet (later work): one in-cut list shared by the two passes,
-// the gather-table kernels (eam_rows.cu) on the same stage, TMA staging.
+// TMA staging.
 
 #include <cuda_runtime.h>
 
-#include "cell_stage.cuh"
-#include "eam_embed.cuh"
+#include "eam_pass.cuh"
 
 namespace {
 
@@ -133,12 +117,6 @@ __device__ __forceinline__ float pair_fn(const PairParams& p, float r) {
   return acc;
 }
 
-// The stage holds kStageCells * C candidates (float4, and fp in the force
-// pass): a stencil's kept candidates fit at once where they are fewer
-// than (kStageCells - 1/8) * C, ~216 of 1,080 at C = 40; otherwise
-// stage_stencil hands them over in parts.
-constexpr int kStageCells = 9;
-
 template <int NB, bool EV>
 __global__ void eam_rho_kernel(const __grid_constant__ CellGrid g,
                                const __grid_constant__ PairParams p,
@@ -147,44 +125,10 @@ __global__ void eam_rho_kernel(const __grid_constant__ CellGrid g,
                                float* __restrict__ embed_part,
                                const float* __restrict__ frho, int nrho,
                                float rdrho, float valid_below) {
-  extern __shared__ float4 stage[];  // pair_list_bytes(cap, false)
-  const int C = g.C;
-  const long long M = g.M;
-  const int cap = kStageCells * C;
-  uint16_t* lists = reinterpret_cast<uint16_t*>(stage + cap);
-  const int cell = blockIdx.x;
-  const CellWalk cw = cell_walk(g, cell, valid_below);
-  const float cut_keep = __fmul_rn(p.cutsq, kKeepMargin);
-
-  float es = 0.f;  // the groups' F(rho) sums, in block_sum's order
-  for (int grp = 0; grp * 32 < C; ++grp) {
-    const int i = grp * 32 + threadIdx.x;
-    const bool own = i < C;
-    const long long si = (long long)cell * C + i;
-    float xi = 0.f, yi = 0.f, zi = 0.f;
-    if (own) {
-      xi = g.x[si];
-      yi = g.x[M + si];
-      zi = g.x[2 * M + si];
-    }
-    const bool valid = own && xi < valid_below;
-    float acc = 0.f;
-    if (__any_sync(0xffffffffu, valid)) {
-      stage_stencil(g, cw, cut_keep, valid_below, cap, stage, nullptr,
-                    nullptr, [&](int kept) {
-        for_each_in_cut(stage, kept, i, valid, xi, yi, zi, p.cutsq, lists,
-                        [&](int q) {
-          float d0, d1, d2;
-          const float rsq = pair_dist(stage[q], xi, yi, zi, d0, d1, d2);
-          acc = __fadd_rn(acc, pair_fn<NB, kR>(p, __fsqrt_rn(rsq)));
-        });
-      });
-    }
-    const float emb = density_group<EV>(acc, own, si, xi, rho, fp, frho,
-                                        nrho, rdrho, valid_below);
-    if (EV) es += emb;
-  }
-  if (EV && threadIdx.x == 0) embed_part[cell] = es;
+  extern __shared__ float4 stage[];  // eam_pass_bytes(C, false)
+  density_pass<EV>(g, p.cutsq, valid_below, stage, rho, fp, embed_part,
+                   frho, nrho, rdrho,
+                   [&](float r) { return pair_fn<NB, kR>(p, r); });
 }
 
 template <int NB, bool EV>
@@ -195,67 +139,16 @@ __global__ void eam_force_kernel(const __grid_constant__ CellGrid g,
                                  float* __restrict__ eng_part,
                                  float* __restrict__ vir_part,
                                  float valid_below) {
-  extern __shared__ float4 stage[];  // pair_list_bytes(cap, true)
-  const int C = g.C;
-  const long long M = g.M;
-  const int cap = kStageCells * C;
-  float* sfp = reinterpret_cast<float*>(stage + cap);
-  uint16_t* lists = reinterpret_cast<uint16_t*>(sfp + cap);
-  const int cell = blockIdx.x;
-  const CellWalk cw = cell_walk(g, cell, valid_below);
-  const float cut_keep = __fmul_rn(p.cutsq, kKeepMargin);
-
-  float es = 0.f, ws = 0.f;  // the groups' sums, in block_sum's order
-  for (int grp = 0; grp * 32 < C; ++grp) {
-    const int i = grp * 32 + threadIdx.x;
-    const bool own = i < C;
-    const long long si = (long long)cell * C + i;
-    float xi = 0.f, yi = 0.f, zi = 0.f, fpi = 0.f;
-    if (own) {
-      xi = g.x[si];
-      yi = g.x[M + si];
-      zi = g.x[2 * M + si];
-      fpi = fp[si];
-    }
-    const bool valid = own && xi < valid_below;
-    float fx = 0.f, fy = 0.f, fz = 0.f, e = 0.f, w = 0.f;
-    if (__any_sync(0xffffffffu, valid)) {
-      stage_stencil(g, cw, cut_keep, valid_below, cap, stage, sfp, fp,
-                    [&](int kept) {
-        for_each_in_cut(stage, kept, i, valid, xi, yi, zi, p.cutsq, lists,
-                        [&](int q) {
-          float d0, d1, d2;
-          const float rsq = pair_dist(stage[q], xi, yi, zi, d0, d1, d2);
-          const float r = __fsqrt_rn(rsq);
-          // psi' as the first design's SASS rounds it: its G1 product
-          // and G2 sum lie in two branches, so nvcc did not fuse them
-          const float psip = __fadd_rn(
-              __fmul_rn(__fadd_rn(fpi, sfp[q]), pair_fn<NB, kG1>(p, r)),
-              pair_fn<NB, kG2>(p, r));
-          fx = __fmaf_rn(-psip, d0, fx);
-          fy = __fmaf_rn(-psip, d1, fy);
-          fz = __fmaf_rn(-psip, d2, fz);
-          if (EV) {
-            e = __fadd_rn(e, pair_fn<NB, kP>(p, r));
-            w = __fmaf_rn(rsq, psip, w);
-          }
-        });
-      });
-    }
-    if (own) {
-      f[si] = fx;
-      f[M + si] = fy;
-      f[2 * M + si] = fz;
-    }
-    if (EV) {
-      es += warp_sum(e);
-      ws += warp_sum(w);
-    }
-  }
-  if (EV && threadIdx.x == 0) {
-    eng_part[cell] = es;
-    vir_part[cell] = -0.5f * ws;
-  }
+  extern __shared__ float4 stage[];  // eam_pass_bytes(C, true)
+  force_pass<EV>(
+      g, p.cutsq, valid_below, stage, fp, f, eng_part, vir_part,
+      [&](float fsum, float r) {
+        // psi' as the first design's SASS rounds it: its G1 product and
+        // G2 sum lie in two branches, so nvcc did not fuse them
+        return __fadd_rn(__fmul_rn(fsum, pair_fn<NB, kG1>(p, r)),
+                         pair_fn<NB, kG2>(p, r));
+      },
+      [&](float r) { return pair_fn<NB, kP>(p, r); });
 }
 
 template <int NB>
@@ -309,7 +202,7 @@ extern "C" int eam_rho_launch(const void* x, void* rho, void* fp, void* embed,
   const CellGrid g{(const float*)x, (long long)ncells * C, nbx, nby, nbz, C,
                    prdx, prdy, prdz};
   const PairParams p = *(const PairParams*)params;
-  const size_t smem = pair_list_bytes(kStageCells * C, false);
+  const size_t smem = eam_pass_bytes(C, false);
   cudaStream_t s = (cudaStream_t)stream;
   if (nbody == 21) {
     return (int)launch_rho<21>(ncells, smem, s, g, p, (float*)rho,
@@ -337,7 +230,7 @@ extern "C" int eam_force_launch(const void* x, const void* fp, void* f,
   const CellGrid g{(const float*)x, (long long)ncells * C, nbx, nby, nbz, C,
                    prdx, prdy, prdz};
   const PairParams p = *(const PairParams*)params;
-  const size_t smem = pair_list_bytes(kStageCells * C, true);
+  const size_t smem = eam_pass_bytes(C, true);
   cudaStream_t s = (cudaStream_t)stream;
   if (nbody == 21) {
     return (int)launch_force<21>(ncells, smem, s, g, p, (const float*)fp,

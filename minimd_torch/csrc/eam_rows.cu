@@ -8,8 +8,7 @@
 // embedding between the passes in XLA).
 //
 //   eam_rho_rows:   rho_i = sum_j R(r_ij); fp_i = F'(rho_i); on EV, F(rho_i)
-//                   of valid slots summed into one partial per cell (the
-//                   epilogue of eam_embed.cuh, shared with eam_force.cu).
+//                   of valid slots summed into one partial per cell.
 //   eam_force_rows: psi' = (fp_i + fp_j)*G1(r) + G2(r); f_i -= psi' * d;
 //                   on EV one partial per cell of sum P(r) and of
 //                   -1/2 sum rsq*psi'.
@@ -21,29 +20,36 @@
 // idxf = (r - lo)*inv_h below split, n_body + (r - split)*rdr above,
 // clamped to [0, ne - 1 + 0.999]; k = min(int idxf, ne - 1), t = idxf - k.
 //
-// What bounds them on the H100: arithmetic, as for eam_force.cu: the
-// 27*C candidates of each atom's stencil (~10 FP32 operations each) and,
-// per pair inside the cutoff, a square root, the index map and one cubic
-// per function, where eam_force.cu runs a degree-20 Horner per function.
+// What bounds them on the H100: instruction issue and latency in the pair
+// loop, not memory, as for eam_force.cu. Each atom meets the 27*C slots of
+// its stencil (1,080 at C = 40 on the Cu deck), ~864 of which hold atoms
+// and ~42 lie inside the cutoff; per in-cut pair a square root, the index
+// map and one cubic per function (one in the density pass, two, three
+// with EV, in the force pass).
 //
-// What this simple design does about it: eam_force.cu's shape (one block
-// per cell, one thread per own slot, the 27 neighbor cells staged in
-// shared memory by cellgrid.cuh). The tables (one float4 per piece and
-// function, 2 KB per function) are staged in shared memory once per
-// block, R for the density pass and G1, G2, P for the force pass: a read
-// at a per-lane index from shared memory costs one load. __constant__
-// memory would serialize lanes that read different pieces. Out-of-cut
-// candidates and the self pair are skipped by a branch. The pair sums and
-// the cubics may contract FMAs and differ from the plain version by f32
-// rounding; fp is bit-identical to the plain embedding of the same rho.
+// What this design does about it: eam_force.cu's, the passes of
+// eam_pass.cuh (one warp per cell; only the valid candidates near the
+// cell's atoms staged, ~216 of 1,080 at C = 40; per-lane lists of the
+// in-cut ones, so the lanes run the index map and the cubics ~42
+// warp-steps per cell where a walk of every slot with a branch around the
+// in-cut pairs, the first design, ran ~215). The tables (one float4 per
+// piece and function, 2 KB per function) are read from global memory
+// with __ldg, so they stay in L1 and no block stages them: the blocks'
+// shared memory is the stage and the lists alone, as in eam_force.cu.
+// (Blocks of 4 warps sharing one copy of the tables in shared memory
+// hold fewer warps on an SM and were slower on the H100: PERF.md.
+// __constant__ memory would serialize lanes that read different pieces.)
+// The pair arithmetic is the first design's, with the contractions nvcc
+// chose there written out (read off its SASS), so rho, fp, f and every
+// lane's sums are bit-identical to it; the pair sums differ from the
+// plain version (ops/eam_rows.py) by f32 rounding.
 //
-// Not done yet (later work): several cells per block for C below a
-// multiple of 32, TMA staging, a neighbor list reused across passes.
+// Not done yet (later work): one in-cut list shared by the two passes,
+// TMA staging.
 
 #include <cuda_runtime.h>
 
-#include "cellgrid.cuh"
-#include "eam_embed.cuh"
+#include "eam_pass.cuh"
 
 namespace {
 
@@ -57,30 +63,22 @@ static_assert(sizeof(RowMap) == 32, "RowMap must match _RowMap");
 
 enum { kR = 0, kG1 = 1, kG2 = 2, kP = 3 };
 
-// Piece k and local coordinate t of r.
+// Piece k and local coordinate t of r, rounded as the first design's
+// SASS rounds them: (r - lo)*inv_h a subtraction and a product, n_body +
+// (r - split)*rdr a subtraction and an FMA.
 __device__ __forceinline__ int row_index(const RowMap& m, float r, float* t) {
-  float idxf = r < m.split ? (r - m.lo) * m.inv_h
-                           : m.n_body + (r - m.split) * m.rdr;
+  float idxf = r < m.split ? __fmul_rn(__fsub_rn(r, m.lo), m.inv_h)
+                           : __fmaf_rn(__fsub_rn(r, m.split), m.rdr,
+                                       m.n_body);
   idxf = fminf(fmaxf(idxf, 0.0f), m.idx_max);
   const int k = min((int)idxf, m.ne - 1);
-  *t = idxf - (float)k;
+  *t = __fsub_rn(idxf, (float)k);
   return k;
 }
 
-// The piece's cubic, coefficients in descending powers.
+// The piece's cubic, coefficients in descending powers: three FMAs.
 __device__ __forceinline__ float cubic(float4 c, float t) {
-  return ((c.x * t + c.y) * t + c.z) * t + c.w;
-}
-
-// Copies functions [first, first + nfn) of the (4, ne) float4 table into
-// shared memory. The first __syncthreads of the cell walk makes them
-// visible before any read.
-__device__ __forceinline__ void stage_table(const float4* __restrict__ tab,
-                                            int first, int nfn, int ne,
-                                            float4* stab) {
-  for (int q = threadIdx.x; q < nfn * ne; q += blockDim.x) {
-    stab[q] = __ldg(tab + first * ne + q);
-  }
+  return __fmaf_rn(__fmaf_rn(__fmaf_rn(c.x, t, c.y), t, c.z), t, c.w);
 }
 
 template <bool EV>
@@ -92,50 +90,14 @@ __global__ void eam_rho_rows_kernel(const __grid_constant__ CellGrid g,
                                     float* __restrict__ embed_part,
                                     const float* __restrict__ frho, int nrho,
                                     float rdrho, float valid_below) {
-  extern __shared__ float4 smem[];  // R table | candidate x | y | z
-  const int C = g.C;
-  const long long M = g.M;
-  float4* tR = smem;
-  float* sx = (float*)(smem + m.ne);
-  float* sy = sx + C;
-  float* sz = sx + 2 * C;
-
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  const bool own = i < C;
-  const long long si = (long long)cell * C + i;
-
-  stage_table(tab, kR, 1, m.ne, tR);
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (own) {
-    xi = g.x[si];
-    yi = g.x[M + si];
-    zi = g.x[2 * M + si];
-  }
-  float acc = 0.f;
-
-  for_each_neighbor(g, cell, [&](const NeighborCell& n) {
-    __syncthreads();  // the previous cell's stage has been consumed
-    stage_positions(g, n, sx, sy, sz);
-    __syncthreads();
-
-    if (own) {
-      for (int j = 0; j < C; ++j) {
-        const float d0 = xi - sx[j];
-        const float d1 = yi - sy[j];
-        const float d2 = zi - sz[j];
-        const float rsq = d0 * d0 + d1 * d1 + d2 * d2;
-        if (rsq < m.cutsq && !(n.center && j == i)) {
-          float t;
-          const int k = row_index(m, __fsqrt_rn(rsq), &t);
-          acc += cubic(tR[k], t);
-        }
-      }
-    }
+  extern __shared__ float4 stage[];  // eam_pass_bytes(C, false)
+  const float4* tR = tab + kR * m.ne;
+  density_pass<EV>(g, m.cutsq, valid_below, stage, rho, fp, embed_part,
+                   frho, nrho, rdrho, [&](float r) {
+    float t;
+    const int k = row_index(m, r, &t);
+    return cubic(__ldg(tR + k), t);
   });
-
-  density_epilogue<EV>(acc, own, si, cell, xi, rho, fp, embed_part, frho,
-                       nrho, rdrho, valid_below);
 }
 
 template <bool EV>
@@ -145,89 +107,36 @@ __global__ void eam_force_rows_kernel(const __grid_constant__ CellGrid g,
                                       const float* __restrict__ fp,
                                       float* __restrict__ f,
                                       float* __restrict__ eng_part,
-                                      float* __restrict__ vir_part) {
-  // G1 | G2 (| P) tables | candidate x | y | z | fp
-  extern __shared__ float4 smem[];
-  constexpr int kTabs = EV ? 3 : 2;
-  const int C = g.C;
-  const long long M = g.M;
-  const float4* tG1 = smem;
-  const float4* tG2 = smem + m.ne;
-  const float4* tP = smem + 2 * m.ne;
-  float* sx = (float*)(smem + kTabs * m.ne);
-  float* sy = sx + C;
-  float* sz = sx + 2 * C;
-  float* sfp = sx + 3 * C;
-
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  const bool own = i < C;
-  const long long si = (long long)cell * C + i;
-
-  stage_table(tab, kG1, kTabs, m.ne, smem);
-  float xi = 0.f, yi = 0.f, zi = 0.f, fpi = 0.f;
-  if (own) {
-    xi = g.x[si];
-    yi = g.x[M + si];
-    zi = g.x[2 * M + si];
-    fpi = fp[si];
-  }
-  float fx = 0.f, fy = 0.f, fz = 0.f, e = 0.f, w = 0.f;
-
-  for_each_neighbor(g, cell, [&](const NeighborCell& n) {
-    __syncthreads();
-    stage_positions(g, n, sx, sy, sz);
-    // the fp halo: a single device reads its neighbors' fp directly
-    for (int t = threadIdx.x; t < C; t += blockDim.x) {
-      sfp[t] = __ldg(fp + n.base + t);
-    }
-    __syncthreads();
-
-    if (own) {
-      for (int j = 0; j < C; ++j) {
-        const float d0 = xi - sx[j];
-        const float d1 = yi - sy[j];
-        const float d2 = zi - sz[j];
-        const float rsq = d0 * d0 + d1 * d1 + d2 * d2;
-        if (rsq < m.cutsq && !(n.center && j == i)) {
-          float t;
-          const int k = row_index(m, __fsqrt_rn(rsq), &t);
-          const float psip =
-              (fpi + sfp[j]) * cubic(tG1[k], t) + cubic(tG2[k], t);
-          fx -= psip * d0;
-          fy -= psip * d1;
-          fz -= psip * d2;
-          if (EV) {
-            e += cubic(tP[k], t);
-            w += rsq * psip;
-          }
-        }
-      }
-    }
-  });
-
-  if (own) {
-    f[si] = fx;
-    f[M + si] = fy;
-    f[2 * M + si] = fz;
-  }
-  if (EV) {
-    const float es = block_sum(e);
-    const float ws = block_sum(w);
-    if (threadIdx.x == 0) {
-      eng_part[cell] = es;
-      vir_part[cell] = -0.5f * ws;
-    }
-  }
+                                      float* __restrict__ vir_part,
+                                      float valid_below) {
+  extern __shared__ float4 stage[];  // eam_pass_bytes(C, true)
+  const float4* tG1 = tab + kG1 * m.ne;
+  const float4* tG2 = tab + kG2 * m.ne;
+  const float4* tP = tab + kP * m.ne;
+  int k;    // the pair's piece and local coordinate, from psi's index
+  float t;  // map, for P (nvcc would compute a second map again)
+  force_pass<EV>(
+      g, m.cutsq, valid_below, stage, fp, f, eng_part, vir_part,
+      [&](float fsum, float r) {
+        k = row_index(m, r, &t);
+        // psi' as the first design's SASS rounds it: the G1 product and
+        // the G2 sum are one expression there, fused into an FMA
+        return __fmaf_rn(fsum, cubic(__ldg(tG1 + k), t),
+                         cubic(__ldg(tG2 + k), t));
+      },
+      [&](float) { return cubic(__ldg(tP + k), t); });
 }
 
 }  // namespace
 
+// Both launchers run one warp per cell and return the CUDA error of the
+// shared-memory opt-in (above 48 KB) or cudaGetLastError(); a slot holds
+// an atom iff its x < valid_below.
+
 // x: (3, M) float32 positions; rho, fp: (M,) float32 out; embed: (ncells,)
 // float32 partials of F(rho) over valid slots (ignored unless evflag);
 // frho: (7, nrho+1) float32 spline columns; tab: (4, ne) float4 tables on
-// the device (R, G1, G2, P); rowmap: host pointer to a RowMap. Returns
-// cudaGetLastError().
+// the device (R, G1, G2, P); rowmap: host pointer to a RowMap.
 extern "C" int eam_rho_rows_launch(const void* x, void* rho, void* fp,
                                    void* embed, const void* frho, int nrho,
                                    float rdrho, const void* tab,
@@ -239,47 +148,39 @@ extern "C" int eam_rho_rows_launch(const void* x, void* rho, void* fp,
   const CellGrid g{(const float*)x, (long long)ncells * C, nbx, nby, nbz, C,
                    prdx, prdy, prdz};
   const RowMap m = *(const RowMap*)rowmap;
-  const int threads = (C + 31) / 32 * 32;
-  const size_t smem = m.ne * sizeof(float4) + 3 * (size_t)C * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (evflag) {
-    eam_rho_rows_kernel<true><<<ncells, threads, smem, s>>>(
-        g, (const float4*)tab, m, (float*)rho, (float*)fp, (float*)embed,
-        (const float*)frho, nrho, rdrho, valid_below);
-  } else {
-    eam_rho_rows_kernel<false><<<ncells, threads, smem, s>>>(
-        g, (const float4*)tab, m, (float*)rho, (float*)fp, nullptr,
-        (const float*)frho, nrho, rdrho, valid_below);
-  }
+  const size_t smem = eam_pass_bytes(C, false);
+  const auto kernel =
+      evflag ? eam_rho_rows_kernel<true> : eam_rho_rows_kernel<false>;
+  const cudaError_t err = allow_stage(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ncells, 32, smem, (cudaStream_t)stream>>>(
+      g, (const float4*)tab, m, (float*)rho, (float*)fp,
+      evflag ? (float*)embed : nullptr, (const float*)frho, nrho, rdrho,
+      valid_below);
   return (int)cudaGetLastError();
 }
 
 // x: (3, M) float32 positions; fp: (M,) float32 from eam_rho_rows_launch;
 // f: (3, M) float32 out; eng/vir: (ncells,) float32 partials of sum P and
 // of -1/2 sum rsq*psi' (ignored unless evflag); tab, rowmap as above.
-// Returns cudaGetLastError().
 extern "C" int eam_force_rows_launch(const void* x, const void* fp, void* f,
                                      void* eng, void* vir, const void* tab,
                                      const void* rowmap, int nbx, int nby,
                                      int nbz, int C, float prdx, float prdy,
-                                     float prdz, int evflag, void* stream) {
+                                     float prdz, float valid_below,
+                                     int evflag, void* stream) {
   const int ncells = nbx * nby * nbz;
   const CellGrid g{(const float*)x, (long long)ncells * C, nbx, nby, nbz, C,
                    prdx, prdy, prdz};
   const RowMap m = *(const RowMap*)rowmap;
-  const int threads = (C + 31) / 32 * 32;
-  const int tabs = evflag ? 3 : 2;
-  const size_t smem =
-      tabs * m.ne * sizeof(float4) + 4 * (size_t)C * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (evflag) {
-    eam_force_rows_kernel<true><<<ncells, threads, smem, s>>>(
-        g, (const float4*)tab, m, (const float*)fp, (float*)f, (float*)eng,
-        (float*)vir);
-  } else {
-    eam_force_rows_kernel<false><<<ncells, threads, smem, s>>>(
-        g, (const float4*)tab, m, (const float*)fp, (float*)f, nullptr,
-        nullptr);
-  }
+  const size_t smem = eam_pass_bytes(C, true);
+  const auto kernel =
+      evflag ? eam_force_rows_kernel<true> : eam_force_rows_kernel<false>;
+  const cudaError_t err = allow_stage(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ncells, 32, smem, (cudaStream_t)stream>>>(
+      g, (const float4*)tab, m, (const float*)fp, (float*)f,
+      evflag ? (float*)eng : nullptr, evflag ? (float*)vir : nullptr,
+      valid_below);
   return (int)cudaGetLastError();
 }

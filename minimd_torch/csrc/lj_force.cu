@@ -19,9 +19,9 @@
 // slot groups with no atom; the forces are bit-identical to a walk of all
 // 27*C slots. Each thread sums its own atom's force (full-neighbor
 // convention): no atomics, deterministic. With EV, energy and virial are
-// reduced per cell in a fixed order (block_sum's over C rounded up to a
-// warp, 0 on empty slots) into one partial per cell; the wrapper sums the
-// partials with torch.sum.
+// reduced per cell in a fixed order (warp_sum's, group by group over C
+// rounded up to a warp, 0 on empty slots) into one partial per cell; the
+// wrapper sums the partials with torch.sum.
 //
 // Not done yet (later work): the approximate reciprocal, staging the 9
 // x-runs of a plane with cp.async or TMA, splitting a cell's atoms across
@@ -47,8 +47,8 @@ __global__ void lj_force_kernel(const __grid_constant__ CellGrid g,
   const CellWalk cw = cell_walk(g, cell, valid_below);
 
   // the cell's slots 32 at a time (slot group grp in lane threadIdx.x);
-  // es and ws take the group sums in order, as block_sum over C rounded
-  // up to a warp adds its warps' sums, so the partials keep its bits
+  // es and ws take the group sums in order (warp_sum's), so the partials
+  // keep the bits of the first design's block-wide sum
   float es = 0.f, ws = 0.f;
   for (int grp = 0; grp * 32 < g.C; ++grp) {
     const int i = grp * 32 + threadIdx.x;

@@ -67,7 +67,7 @@ __global__ void lj_step_kernel(const __grid_constant__ CellGrid g,
   const int cell = blockIdx.x;
   const CellWalk cw = cell_walk(g, cell, valid_below);
 
-  // slot groups as in lj_force.cu; es, ws, vs keep block_sum's bits
+  // slot groups as in lj_force.cu; es, ws, vs in warp_sum's order
   float es = 0.f, ws = 0.f, vs = 0.f;
   for (int grp = 0; grp * 32 < g.C; ++grp) {
     const int i = grp * 32 + threadIdx.x;

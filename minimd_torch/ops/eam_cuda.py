@@ -10,10 +10,11 @@ C <= cells.MAX_CAPACITY. On a CPU tensor the closures take the plain
 versions (ops/eam_grid.py); on a CUDA tensor they launch the kernels or
 raise.
 
-in_cut_lists and list_steps are the plain mirror of the kernels' pair
-lists (csrc/cell_stage.cuh: the pruned stage, then one list of in-cut
-candidates per lane), for the tests and for chip_smoke.py's candidate
-counts; no force path calls them.
+in_cut_lists and list_steps are the plain mirror of the pair lists of
+these kernels and of the gather-table ones (ops/eam_rows_cuda.py), which
+share the stage and the cutoff (csrc/cell_stage.cuh: the pruned stage,
+then one list of in-cut candidates per lane), for the tests and for
+chip_smoke.py's candidate counts; no force path calls them.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from .pairgrid import halo_extent, kept_candidates, walk_candidates
 
 # Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = {"eam_rho": 0, "eam_force": 0}
-# csrc/eam_force.cu kStageCells (the stage holds STAGE_CELLS * C
-# candidates), csrc/cell_stage.cuh kListLen and kListStep
+# csrc/eam_pass.cuh kStageCells (the EAM kernels' stage holds
+# STAGE_CELLS * C candidates), csrc/cell_stage.cuh kListLen and kListStep
 STAGE_CELLS, LIST_LEN, LIST_STEP = 9, 64, 8
 
 # csrc/eam_force.cu's PairParams layout

@@ -5,8 +5,12 @@ make_eam_force_pallas_rows.
 Two launches per force call, as in ops/eam_cuda.py: `eam_rho_rows`
 (density through the R table, with the embedding in its epilogue) and
 `eam_force_rows` (pair forces through the G1, G2 and, with evflag, P
-tables). The tables are eam_file.PairRows with degree 3 (4 coefficients
-per piece). The kernels take f32, stencil reach 1 and C <=
+tables). Both run the passes of csrc/eam_pass.cuh that eam_cuda's
+kernels run (one warp per cell on the pruned stage and per-lane in-cut
+lists of csrc/cell_stage.cuh), with a cubic from the tables (read from
+global memory) in place of the Horner; eam_cuda.in_cut_lists and
+list_steps mirror their lists too (the same cutoff, see row_map). The tables are eam_file.PairRows with degree 3 (4
+coefficients per piece). The kernels take f32, stencil reach 1 and C <=
 cells.MAX_CAPACITY; the JAX kernel's 3*C <= 128 limit is a TPU lane limit
 and is not carried over. On a CPU tensor the closures take the plain
 versions (ops/eam_rows.py); on a CUDA tensor they launch the kernels or
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..cells import _SENTINEL_BASE, CellGeometry
+from ..cells import VALID_BELOW, CellGeometry
 from ..eam_file import PairRows
 from .eam import EAMTables
 from .eam_cuda import _check_geometry, _check_tensor, _launch_args
@@ -44,6 +48,8 @@ class _RowMap(ctypes.Structure):
 
 
 def row_map(rows: PairRows, cut: float) -> _RowMap:
+    """The kernels' RowMap; its cutsq is eam_cuda.pair_params's (cut * cut
+    rounded to f32), so both EAM forms list the same in-cut pairs."""
     return _RowMap(lo=rows.lo, split=rows.split, inv_h=rows.inv_h,
                    rdr=rows.rdr, n_body=float(rows.n_body),
                    idx_max=rows.n_entries - 1.0 + 0.999, cutsq=cut * cut,
@@ -95,7 +101,7 @@ def make_eam_rho_rows_cuda(geom: CellGeometry, tables: EAMTables,
             x.data_ptr(), rho.data_ptr(), fp.data_ptr(),
             embed.data_ptr() if evflag else None, frho.data_ptr(),
             tables.nrho, rdrho, tab.data_ptr(), ctypes.addressof(rmap),
-            *grid, 0.5 * _SENTINEL_BASE, int(evflag),
+            *grid, VALID_BELOW, int(evflag),
             torch.cuda.current_stream(x.device).cuda_stream)
         LAUNCHES["eam_rho_rows"] += 1
         _build.check(rc, "eam_rho_rows_launch")
@@ -131,8 +137,8 @@ def make_eam_pair_rows_cuda(geom: CellGeometry, tables: EAMTables,
             eptr = vptr = None
         rc = _build.lib().eam_force_rows_launch(
             x.data_ptr(), fp.data_ptr(), f.data_ptr(), eptr, vptr,
-            tab.data_ptr(), ctypes.addressof(rmap), *grid, int(evflag),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            tab.data_ptr(), ctypes.addressof(rmap), *grid, VALID_BELOW,
+            int(evflag), torch.cuda.current_stream(x.device).cuda_stream)
         LAUNCHES["eam_force_rows"] += 1
         _build.check(rc, "eam_force_rows_launch")
         if evflag:

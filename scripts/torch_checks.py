@@ -40,16 +40,19 @@
         shapes 4k, 131k, 864k, cap64, cap512 and s6_nb2: lj_force f, eng,
         vir (ev and noev); lj_step x', w' and each step's eng, vir, vsq
         after 4 chained ev steps, and x', w' of one noev step; eam_rho,
-        eam_force and the gather-table pair on the EAM deck (ev and noev),
-        also on chip_smoke.py's EAM lattice of twice the density ("dense",
-        where the EAM kernels hand their stage and lists over early);
-        and the final x, v and thermo rows of a real run from each deck at
-        131k (LJ run(200), EAM run(100): a thermalised state whose cells
-        can hold more than 32 atoms). Then it times lj_force and lj_step,
-        eam_rho and eam_force (noev and ev) at 131k and 864k, and the main
-        paths `runs` times each: LJ plain and fused_step (131k run(200),
-        864k run(100)) and EAM (131k run(100)). The outputs must hash
-        alike across all four processes.
+        eam_force and the gather-table pair eam_rho_rows, eam_force_rows
+        (rho, fp, the embed partials, f, eng, vir) on the EAM deck (ev and
+        noev), also on chip_smoke.py's EAM lattice of twice the density
+        ("dense", where the EAM kernels hand their stage and lists over
+        early); and the final x, v and thermo rows of a real run at 131k
+        from each deck and EAM form (LJ run(200), EAM run(100) through the
+        polynomial and through the gather-table kernels: a thermalised
+        state whose cells can hold more than 32 atoms). Then it times
+        lj_force and lj_step, the four EAM kernels (noev and ev) at 131k
+        and 864k, and the main paths `runs` times each: LJ plain and
+        fused_step (131k run(200), 864k run(100)) and EAM through the
+        polynomial and the gather-table kernels (131k and 864k run(100)).
+        The outputs must hash alike across all four processes.
 
 Every line is printed as "[name] ..." and the last line is a JSON object
 of the numbers.
@@ -223,7 +226,8 @@ def lj_parity_worker(runs):
 
     sys.path.insert(0, str(HERE))
     from chip_smoke import (EAM_RHO_SCALE, EAM_SHAPES, LJ_SHAPES, cuda_ms,
-                            lattice, lj_params, rebinned, timed_run)
+                            lattice, lj_params, rebinned, through_rows,
+                            timed_run)
     from minimd_torch import cells
     from minimd_torch.ops import eam_cuda, eam_rows_cuda
     from minimd_torch.ops.eam import EAMTables
@@ -282,13 +286,18 @@ def lj_parity_worker(runs):
         print(f"[lj-parity-hash] {label} EAM nb={geom.nb} C={geom.capacity}"
               f": {sum(1 for k in hashes if f' {label} ' in k)} outputs",
               flush=True)
-    for deck, steps in (("lj", 200), ("eam", 100)):
+    for deck, steps, form in (("lj", 200, ""), ("eam", 100, ""),
+                              ("eam", 100, " rows")):
         sim = _sim(deck, 32)
+        if form:
+            through_rows(sim)
         trace = sim.run(steps)
+        if sim._regrows:
+            raise AssertionError(f"{deck}{form} 131k: regrew")
         rows = torch.tensor(sim.thermo_trace(trace), dtype=torch.float64)
-        hashes[f"run {deck} 131k run({steps})"] = _digest(
+        hashes[f"run {deck}{form} 131k run({steps})"] = _digest(
             sim.state.x, sim.state.v, rows)
-        print(f"[lj-parity-hash] {deck} 131k run({steps}): rows "
+        print(f"[lj-parity-hash] {deck}{form} 131k run({steps}): rows "
               f"{rows.tolist()}", flush=True)
         del sim
     for label, s, iters in (("131k", 32, 50), ("864k", 60, 20)):
@@ -307,15 +316,19 @@ def lj_parity_worker(runs):
             out["ms"][f"{name} {label}"] = cuda_ms(fn, iters)
         _, geom, st, xp = lattice(s, deck="eam", kick=0.08)
         x = rebinned(geom, st, xp)
-        k_rho = eam_cuda.make_eam_rho_cuda(geom, tables)
-        k_pair = eam_cuda.make_eam_pair_cuda(geom, tables)
-        fp = k_rho(x, False)[1]
-        for name, fn in (
-                ("eam_rho", lambda: k_rho(x, False)),
-                ("eam_rho_ev", lambda: k_rho(x, True)),
-                ("eam_force", lambda: k_pair(x, fp, False)),
-                ("eam_force_ev", lambda: k_pair(x, fp, True))):
-            out["ms"][f"{name} {label}"] = cuda_ms(fn, iters)
+        for kind, rho_fn, pair_fn in (
+                ("", eam_cuda.make_eam_rho_cuda,
+                 eam_cuda.make_eam_pair_cuda),
+                ("_rows", eam_rows_cuda.make_eam_rho_rows_cuda,
+                 eam_rows_cuda.make_eam_pair_rows_cuda)):
+            k_rho, k_pair = rho_fn(geom, tables), pair_fn(geom, tables)
+            fp = k_rho(x, False)[1]
+            for name, fn in (
+                    (f"eam_rho{kind}", lambda: k_rho(x, False)),
+                    (f"eam_rho{kind}_ev", lambda: k_rho(x, True)),
+                    (f"eam_force{kind}", lambda: k_pair(x, fp, False)),
+                    (f"eam_force{kind}_ev", lambda: k_pair(x, fp, True))):
+                out["ms"][f"{name} {label}"] = cuda_ms(fn, iters)
         print(f"[lj-parity-time] {label}: " + " ".join(
             f"{k.split()[0]}={v:.4f}ms" for k, v in out["ms"].items()
             if k.endswith(label)), flush=True)
@@ -323,9 +336,12 @@ def lj_parity_worker(runs):
     for deck, label, s, steps, paths in (
             ("lj", "131k", 32, 200, ("plain", "fused")),
             ("lj", "864k", 60, 100, ("plain", "fused")),
-            ("eam", "131k", 32, 100, ("plain",))):
+            ("eam", "131k", 32, 100, ("plain", "rows")),
+            ("eam", "864k", 60, 100, ("plain", "rows"))):
         for path in paths:
             sim = _sim(deck, s, fused_step=path == "fused")
+            if path == "rows":
+                through_rows(sim)
             rates = [timed_run(sim, steps)[2] for _ in range(runs)]
             if sim.state.overflow or sim._regrows:
                 raise AssertionError(f"{deck} {label} {path}: regrew")

@@ -1,8 +1,10 @@
 """The plain mirror of the EAM kernels' pair lists (ops/eam_cuda.py
 in_cut_lists and list_steps over pairgrid.kept_candidates, the pruned
-stage of csrc/cell_stage.cuh) against every pair inside the EAM cutoff,
-and the density and force summed over the lists against the plain grid
-(ops/eam_grid.py, the twin of the JAX package's eam_grid) in f64."""
+stage of csrc/cell_stage.cuh, shared by the polynomial and the
+gather-table kernels) against every pair inside the EAM cutoff, and the
+density and force summed over the lists, through either form's pair
+functions, against that form's plain passes (ops/eam_grid.py, the twin
+of the JAX package's eam_grid, and ops/eam_rows.py) in f64."""
 
 import functools
 
@@ -12,10 +14,12 @@ import torch
 
 from minimd_torch import cells
 from minimd_torch.config import builtin_deck
-from minimd_torch.ops import eam_cuda
+from minimd_torch.ops import eam_cuda, eam_rows_cuda
 from minimd_torch.ops.eam import EAMTables
 from minimd_torch.ops.eam_grid import (eval_pair_fns, make_eam_pair_grid,
                                        make_eam_rho_grid)
+from minimd_torch.ops.eam_rows import (eval_pair_rows, make_eam_pair_rows,
+                                       make_eam_rho_rows)
 from minimd_torch.ops.pairgrid import kept_candidates, walk_candidates
 from minimd_torch.sim import Simulation
 
@@ -139,11 +143,20 @@ def test_list_steps_hand_over_a_full_stage():
     assert int(split.max()) <= int(lists.sum(dim=(1, 2)).max())
 
 
-def _sums_over_lists(geom, x64, lists, fp):
+# each EAM form: its pair functions at r, and its plain passes
+FORMS = {
+    "poly": (lambda r, names: eval_pair_fns(r, _tables().polys, names),
+             make_eam_rho_grid, make_eam_pair_grid),
+    "rows": (lambda r, names: eval_pair_rows(r, _tables().rows, names),
+             make_eam_rho_rows, make_eam_pair_rows),
+}
+
+
+def _sums_over_lists(geom, x64, lists, fp, pair_fns):
     """(rho (M,), f (3, M)) in f64 over the list entries, in walk order:
-    rho_i = sum R(r), f_i -= ((fp_i + fp_j) G1 + G2) d."""
+    rho_i = sum R(r), f_i -= ((fp_i + fp_j) G1 + G2) d, the pair
+    functions pair_fns(r, names)."""
     n, C = geom.ncells, geom.capacity
-    polys = _tables().polys
     cand, _ = walk_candidates(geom, x64)
     _, fp_walk = walk_candidates(geom, torch.stack([fp] * 3))  # no shift
     own = x64.reshape(3, n, C)
@@ -154,8 +167,7 @@ def _sums_over_lists(geom, x64, lists, fp):
         sl = slice(c0, c0 + 16)
         d = own[:, sl, :, None] - cand[:, sl, None, :]
         r = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-        g = eval_pair_fns(torch.where(lists[sl], r, 1.0), polys,
-                          ("R", "G1", "G2"))
+        g = pair_fns(torch.where(lists[sl], r, 1.0), ("R", "G1", "G2"))
         on = lists[sl]
         rho[sl] = torch.where(on, g["R"], 0.0).sum(dim=2)
         psip = (fpi[sl] + fp_walk[sl, None, :]) * g["G1"] + g["G2"]
@@ -163,22 +175,38 @@ def _sums_over_lists(geom, x64, lists, fp):
     return rho.reshape(-1), f.reshape(3, -1)
 
 
-@pytest.mark.parametrize("kind,dtype", CASES[:4])
-def test_sums_over_lists_match_plain_f64(kind, dtype):
+# the polynomial form keeps its cases' ids; the gather tables get "rows-"
+SUM_CASES = [pytest.param(form, *c.values, id=("" if form == "poly" else
+                                               f"{form}-") + c.id)
+             for form in FORMS for c in CASES[:4]]
+
+
+@pytest.mark.parametrize("form,kind,dtype", SUM_CASES)
+def test_sums_over_lists_match_plain_f64(form, kind, dtype):
     """rho and the force summed over the lists (the lists from the case's
-    dtype, the sums in f64) against eam_grid's f64 passes, to 1e-12 of
-    their scale."""
+    dtype, the sums in f64) through the form's pair functions (the
+    polynomial fit or the gather tables) against the same form's f64
+    plain passes, to 1e-12 of their scale."""
     geom, _, keep, _ = _lists(kind, dtype)
     x64 = _state(kind)[1].to(torch.float64)
     tables = _tables()
+    pair_fns, rho_pass, pair_pass = FORMS[form]
     lists = _in_cut_all(kind, torch.float64) & keep[:, None, :]
-    rho_want, fp, _ = make_eam_rho_grid(geom, tables, torch.float64)(x64,
-                                                                     False)
-    f_want, _, _ = make_eam_pair_grid(geom, tables, torch.float64)(x64, fp,
-                                                                   False)
-    rho, f = _sums_over_lists(geom, x64, lists, fp)
+    rho_want, fp, _ = rho_pass(geom, tables, torch.float64)(x64, False)
+    f_want, _, _ = pair_pass(geom, tables, torch.float64)(x64, fp, False)
+    rho, f = _sums_over_lists(geom, x64, lists, fp, pair_fns)
     valid = cells.is_valid(x64)
     assert float((rho - rho_want).abs().max()
                  / rho_want[valid].abs().max()) < 1e-12
     assert float((f - f_want).abs().max()
                  / f_want[:, valid].abs().max()) < 1e-12
+
+
+def test_both_forms_list_at_one_cutoff():
+    """The gather-table kernels' cutsq (row_map) is the polynomial
+    kernels' (pair_params), the same f32, so the mirror's keep mask,
+    lists and warp-steps are both forms'."""
+    tables = _tables()
+    rows_cutsq = eam_rows_cuda.row_map(tables.rows, tables.cut).cutsq
+    poly_cutsq = eam_cuda.pair_params(tables.polys, tables.cut)[0].cutsq
+    assert rows_cutsq == poly_cutsq == np.float32(tables.cut ** 2)

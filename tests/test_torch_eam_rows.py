@@ -35,15 +35,16 @@ def tables():
     return EAMTables.from_funcfl()
 
 
-@pytest.fixture(scope="module")
-def lattice():
-    """The s=6 Cu lattice of create.setup_system with every atom moved by a
-    seeded +-0.08 A per coordinate, laid out by init_state on the port's
-    (solid) geometry: (geometry, the JAX package's copy of it, f64 state).
-    The JAX side takes the same arrays (the port's layout is the JAX
-    package's, bit for bit: tests/test_torch_cells.py)."""
+def _lattice(rho_scale=1.0):
+    """The s=6 Cu lattice of create.setup_system at rho_scale times the
+    deck's density with every atom moved by a seeded +-0.08 A per
+    coordinate, laid out by init_state on the port's (solid) geometry:
+    (geometry, the JAX package's copy of it, f64 state). The JAX side
+    takes the same arrays (the port's layout is the JAX package's, bit for
+    bit: tests/test_torch_cells.py)."""
     inp = builtin_deck("eam")
     inp.nx = inp.ny = inp.nz = 6
+    inp.rho *= rho_scale
     prd, x, v, typ, _ = create.setup_system(inp)
     x = x + 0.08 * np.sign(np.random.default_rng(11).normal(size=x.shape))
     geom = cells.build_geometry(prd, inp.neigh_cut, x, solid=True)
@@ -52,6 +53,11 @@ def lattice():
     st = init_state(x, v, typ, geom, dtype=torch.float64)
     assert st.overflow == 0 and int(st.valid.sum()) == 864
     return geom, jgeom, st
+
+
+@pytest.fixture(scope="module")
+def lattice():
+    return _lattice()
 
 
 def _rel(a, b):
@@ -155,12 +161,17 @@ def test_rows_cuda_wrappers_take_plain_on_cpu(tables, lattice):
 
 
 @pytest.mark.cuda
-def test_rows_kernels_match_plain_on_card(tables, lattice):
+@pytest.mark.parametrize("rho_scale", [1.0, 2.0], ids=["lattice", "dense"])
+def test_rows_kernels_match_plain_on_card(tables, rho_scale):
     """The gather-table kernels against their plain versions on the card
-    (chip_smoke.py runs the same at full sizes, with its tolerances)."""
+    (chip_smoke.py runs the same at full sizes, with its tolerances), on
+    the deck's lattice and on one of twice its density, where a cell keeps
+    up to 358 candidates against a stage of 9*C - 32 = 328 and an atom
+    has up to 78 pairs against a list of 64: the kernels hand the stage
+    and the lists over early there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
-    geom, _, st = lattice
+    geom, _, st = _lattice(rho_scale)
     x = st.x.to(device="cuda", dtype=torch.float32)
     rk, fpk, ek = eam_rows_cuda.make_eam_rho_rows_cuda(geom, tables)(x, True)
     rp, _, ep = make_eam_rho_rows(geom, tables, device="cuda")(x, True)
