@@ -11,8 +11,12 @@ Run from the root of a checkout. Phases, one line each:
 3. hold each kernel against its plain PyTorch version on the card, f32:
    the LJ force (ev and noev) at 4k, 131k, 864k, a pinned capacity=64
    grid, s=6 on a (2,2,2) grid (image aliasing) and the largest capacity
-   (512, the LJ kernels only); the pull rebin, bit-identical, on the
-   4k, 131k, 864k and capacity=64 grids, on a perturbed state;
+   (512, the LJ kernels only); the rebin (the two launches of
+   csrc/rebin.cu), bit-identical to cells.rebin_local (x, v, typ and the
+   overflow), on a perturbed state of the 4k, 131k, 864k, capacity=64
+   and capacity=512 grids, a (3,3,3) grid (every neighbor wraps), the EAM
+   deck's 131k lattice, a capacity that overflows and a teleporter (every
+   lattice has four atom types);
    the two EAM kernels (density + embedding, force) on the same five
    shapes of the EAM deck, cap512 and a lattice of twice the density
    (where the kernels hand their stage and lists over early): rho, fp
@@ -39,8 +43,9 @@ Run from the root of a checkout. Phases, one line each:
    warm run), a torch.profiler pass of each at 131k and 864k (the card's
    busy share), the host's and the card's time per rebin and per plain
    step (how much of the idle time each explains), each kernel timed
-   against its plain version at both sizes and the host's time to issue
-   one launch of each LJ wrapper;
+   against its plain version at both sizes (the whole rebin against
+   cells.rebin_local) and the host's time to issue one call of each LJ
+   wrapper and of the rebin;
 6. the EAM main path at full width: inputs/in.eam.miniMD (131,072 Cu
    atoms), run(100) with the EAM kernels' launches counted over exactly
    that run and its step-0 row held against the golden step 0; then -s 60
@@ -77,9 +82,10 @@ the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its FP32 operations (for the pair kernels on the in-cut
 pairs of the timed input) over 67 TFLOP/s (an FMA counts 2, a compare,
 select, min, max, square root, conversion or divide 1), the published
-H100 SXM peaks. No single PyTorch call computes any of the pair, rebin or
-FMA-chain functions, so their library_ms is null; copy_add's is
-torch.add(x, 1.0, out=y).
+H100 SXM peaks; the rebin's bound is its bytes, x, v and typ read and
+written once (56 B a slot). No single PyTorch call computes any of the
+pair, rebin or FMA-chain functions, so their library_ms is null;
+copy_add's is torch.add(x, 1.0, out=y).
 
 Prints a JSON line of the 9 ported kernels, the rates, the probes' pins
 and the half paths' numbers, the card line, and last {"ok": true,
@@ -151,6 +157,17 @@ LJ_KICK = {"cap512": 0.04}
 # kernels hand their stage over and run their lists early there
 EAM_SHAPES = {**SHAPES, "cap512": (10, None, 512), "dense": (10, None, None)}
 EAM_RHO_SCALE = {"dense": 2.0}
+# the rebin also on (s, nbins, capacity, deck, kick, teleport): a (3,3,3)
+# grid, where every neighbor of every cell wraps; the EAM deck's 131k
+# lattice (its own grid, four types as every lattice here); the 4k grid
+# at C = 32, which it fills exactly, with kicks that make cells take more
+# than C; and one atom moved by half the box, which is lost (counted, not
+# placed)
+REBIN_SHAPES = {"nb3": (6, (3, 3, 3), None, "lj", 0.12, False),
+                "eam-131k": (32, None, None, "eam", 0.08, False),
+                "overflow": (10, None, 32, "lj", 0.5, False),
+                "teleporter": (10, None, None, "lj", 0.12, True)}
+REBIN_OVERFLOWS = ("overflow", "teleporter")
 # the EAM kernels' prune keeps ~0.2 of the 27*C slots on the Cu lattice
 EAM_KEPT_SHARE = 0.3
 
@@ -187,6 +204,30 @@ def cuda_ms(fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters):
+    """Device time of fn() in ms over iters calls with the card's queue
+    kept full: a spin kernel holds the card while the host queues the
+    calls, so a call that the host issues more slowly than the card runs
+    it (the rebin at 131k) is timed on the card, not on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * iters * one + 2e-3)))  # ~2 GHz clock
     start.record()
     for _ in range(iters):
         fn()
@@ -244,6 +285,17 @@ def lattice(s, nbins=None, capacity=None, seed=7, deck="lj", kick=0.12,
                            dtype=torch.float32, device="cuda")
     xp = st.x + kick * st.valid
     return inp, geom, st, xp
+
+
+def rebin_case(label):
+    """(geometry, f32 CUDA state, perturbed positions) of a REBIN_SHAPES
+    case."""
+    s, nbins, cap, deck, kick, teleport = REBIN_SHAPES[label]
+    _, geom, st, xp = lattice(s, nbins, cap, deck=deck, kick=kick)
+    if teleport:
+        i = int(st.valid.nonzero()[0])
+        xp[0, i] += geom.prd[0] * 0.5
+    return geom, st, xp
 
 
 def rebinned(geom, st, xp):
@@ -558,6 +610,9 @@ def compare_eam_rows(label, geom, tables, x, typ):
 
 
 def compare_rebin(label, geom, st, xp):
+    """The rebin kernels against cells.rebin_local, bit for bit (x, v,
+    typ, overflow); the overflow must be above 0 just where the case
+    overflows."""
     import torch
 
     from minimd_torch import cells
@@ -567,12 +622,15 @@ def compare_rebin(label, geom, st, xp):
     rp = cells.rebin_local(xp, st.v, st.typ, geom)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(rk, rp))
-    phase("compare", f"rebin_pull {label} nb={geom.nb} C={geom.capacity}: "
+    overflows = int(rp[3]) > 0
+    phase("compare", f"rebin {label} nb={geom.nb} C={geom.capacity} "
+          f"types={int(st.typ[st.valid].unique().numel())}: "
           f"bit-identical={same} overflow={int(rk[3])}/{int(rp[3])} "
-          f"atoms={int(cells.is_valid(rk[0]).sum())}")
-    if not same:
-        raise AssertionError(f"rebin kernel differs from its plain version "
-                             f"at {label}")
+          f"atoms={int(cells.is_valid(rk[0]).sum())}/"
+          f"{int(cells.is_valid(xp).sum())}")
+    if not (same and overflows == (label in REBIN_OVERFLOWS)):
+        raise AssertionError(f"rebin kernels differ from rebin_local (or "
+                             f"the overflow is wrong) at {label}")
     return 0.0
 
 
@@ -724,8 +782,8 @@ def eam_candidate_counts(label, geom, tables, x, max_share=EAM_KEPT_SHARE):
 
 
 def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
-    """LJ, fused-step and pull rebin kernels against their plain versions
-    at one shape: ms per call, and each kernel's bound from this input."""
+    """LJ, fused-step and rebin kernels against their plain versions at
+    one shape: ms per call, and each kernel's bound from this input."""
     import torch
 
     from minimd_torch import cells
@@ -755,29 +813,31 @@ def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
     t["step"] = cuda_ms(lambda: k_step(x1, wk, False, out=spare), iters)
     t["step_ev"] = cuda_ms(lambda: k_step(x1, wk, True, out=spare), iters)
     t["step_plain"] = cuda_ms(lambda: p_step(x1, w1, False), plain_iters)
-    # what the host spends to issue each launch of a plain step and of a
-    # fused step (the step loop at 131k is host-bound, PERF.md)
+    # the whole rebin: its kernels against rebin_local on constants built
+    # once (as a Simulation holds them), on the perturbed state
+    rebin = make_rebin_cuda(geom, "cuda")
+    consts = cells.RebinConstants.build(geom, torch.float32, "cuda")
+    # what the host spends to issue each launch of a plain step, of a
+    # fused step and of a rebin
     hosts = {"lj": lambda: k_noev(x, typ),
              "step": lambda: k_step(x1, wk, False, out=spare),
-             "kick": lambda: wk.add_(x1, alpha=0.0)}
+             "kick": lambda: wk.add_(x1, alpha=0.0),
+             "rebin": lambda: rebin(xp, st.v, st.typ)}
     host = {k: host_us(fn, iters) for k, fn in hosts.items()}
-    # the pull alone (the kernel's share of the rebin), same inputs
-    xw = cells.pbc_wrap(xp, geom.prd)
-    cid, xs = cells.coord_to_cell(xw, geom)
-    cid = torch.where(cells.is_valid(xp), cid, -1)
-    chans = [xs[0], xs[1], xs[2], st.v[0], st.v[1], st.v[2], st.typ]
-    pull = make_rebin_cuda(geom, "cuda").pull
-    t["pull"] = cuda_ms(lambda: pull(cid, chans), iters)
-    t["pull_plain"] = cuda_ms(lambda: cells.rebin_pull(cid, chans, geom),
-                              plain_iters)
+    t["rebin"] = queued_ms(lambda: rebin(xp, st.v, st.typ), iters)
+    # the kernels' own time (torch.profiler), without the gaps between them
+    t["rebin_busy"] = profiled(lambda: [rebin(xp, st.v, st.typ)
+                                        for _ in range(iters)])[1] / iters
+    t["rebin_plain"] = cuda_ms(lambda: cells.rebin_local(
+        xp, st.v, st.typ, geom, consts=consts), plain_iters)
     M = geom.nslots
     n_cut, _ = count_pairs(geom, x, inp.force_cut)
     t["candidates"] = candidate_counts(label, geom, params, x, n_cut)
     t["lj_bound"] = bound(24 * M, n_cut * _LJ_PAIR_OPS)
     # x, w in; x', w' out
     t["step_bound"] = bound(48 * M, n_cut * _LJ_PAIR_OPS + _STEP_SLOT_OPS * M)
-    # cid + 7 channels in, 7 channels + counts + overflow out
-    t["pull_bound"] = bound(4 * (8 * M + 7 * M + geom.ncells + 1), 0)
+    # x, v, typ in and out: 7 words a slot each way
+    t["rebin_bound"] = bound(56 * M, 0)
     phase("kernel-time", f"lj {label} nb={geom.nb} C={geom.capacity} "
           f"pairs={n_cut}: " + " ".join(
               f"{k}={v:.4f}ms" if isinstance(v, float) else
@@ -785,6 +845,7 @@ def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
               if k != "candidates"))
     phase("host-time", f"lj {label}: host us per call " + " ".join(
         f"{k}={v:.1f}" for k, v in host.items()))
+    t["host_us"] = host
     return t
 
 
@@ -1258,7 +1319,7 @@ def main():
     for label, (s, nbins, cap) in LJ_SHAPES.items():
         inp, geom, st, xp = lattice(s, nbins, cap,
                                     kick=LJ_KICK.get(label, 0.12))
-        if label in SHAPES and min(geom.nb) >= 3:
+        if min(geom.nb) >= 3:
             max_err["rebin_pull"] = max(max_err["rebin_pull"],
                                         compare_rebin(label, geom, st, xp))
         rebin = cells.rebin_local if min(geom.nb) >= 3 else cells.rebin_lean
@@ -1275,6 +1336,8 @@ def main():
         max_err["lj_step"] = max(max_err["lj_step"], compare_lj_step(
             label, geom, lj_params(inp), x, v, cells.is_valid(x), inp.dt,
             0.5 * inp.dt))
+    for label in REBIN_SHAPES:
+        compare_rebin(label, *rebin_case(label))
     tables = EAMTables.from_funcfl()
     for label, (s, nbins, cap) in EAM_SHAPES.items():
         _, geom, st, xp = lattice(s, nbins, cap, deck="eam", kick=0.08,
@@ -1316,7 +1379,7 @@ def main():
               f" {res}; first 2000 steps: {short}; launches={launches} "
               f"overflow={sim.state.overflow} regrows={sim._regrows} "
               f"last={rows_[-1]}")
-        # the half path runs no force kernel: only the pull rebin
+        # the half path runs no force kernel: only the rebin kernels
         others = [k for k, n in launches.items() if n and k not in need]
         if not (res.passed and all(launches[k] > 0 for k in need)
                 and not (half and others)
@@ -1330,7 +1393,7 @@ def main():
     gate("lj", "lj-fused", ("lj_step", "lj_force", "rebin_pull"), fused=True)
     gate("eam", "eam-rows", ("eam_rho_rows", "eam_force_rows", "rebin_pull"),
          rows=True)
-    # the half-neighbor paths (plain torch forces, the pull rebin kernel)
+    # the half-neighbor paths (plain torch forces, the rebin kernels)
     for deck, label, gn in (("lj", "lj-half", True),
                             ("lj", "lj-half-gn0", False),
                             ("eam", "eam-half", True)):
@@ -1539,9 +1602,13 @@ def main():
     kernels = [
         entry("lj_force", "minimd_torch/csrc/lj_force.cu",
               "minimd_tpu/ops/lj_pallas.py:69", times, "lj"),
-        entry("rebin_pull", "minimd_torch/csrc/rebin_pull.cu",
-              "minimd_tpu/ops/rebin_pallas.py:217", times, "pull",
-              also_replaces="minimd_tpu/ops/rebin_pallas.py:49"),
+        entry("rebin_pull", "minimd_torch/csrc/rebin.cu",
+              "minimd_tpu/ops/rebin_pallas.py:217", times, "rebin",
+              also_replaces=["minimd_tpu/ops/rebin_pallas.py:49",
+                             "minimd_tpu/ops/rebin_pallas.py:370"],
+              launches_per_call=["rebin_bin", "rebin_gather"],
+              host_us=times["131k"]["host_us"]["rebin"],
+              host_us_864k=times["864k"]["host_us"]["rebin"]),
         entry("eam_rho", "minimd_torch/csrc/eam_force.cu",
               "minimd_tpu/ops/eam_pallas.py:457", eam_times, "rho",
               also_replaces="minimd_tpu/ops/eam_pallas.py:621"),

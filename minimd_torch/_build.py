@@ -31,9 +31,9 @@ _SIGNATURES = {
     # valid_below, evflag, stream
     "lj_force_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                         ctypes.c_double, _F, _F, _I, _P],
-    # cid, 6 float channels, typ, 6 float outputs, typ out, counts,
-    # overflow, nbx, nby, nbz, C, stream
-    "rebin_pull_launch": [_P] * 17 + [_I, _I, _I, _I, _P],
+    # x, v, typ, x_out, v_out, t_out, scratch, overflow, nbx, nby, nbz, C,
+    # prd (3), offset (3), 1/binsize (3), valid_below, stream
+    "rebin_launch": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
     # x, rho, fp, embed, frho, nrho, rdrho, params, nbody, nbx, nby, nbz, C,
     # prdx, prdy, prdz, valid_below, evflag, stream
     "eam_rho_launch": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _I,

@@ -15,7 +15,8 @@ option. The layout it defines is the same:
 The tensor half ports the sort-based `rebin` (initial placement),
 `rebin_lean` (grids under 3 cells per axis) and the one-hot pull
 `rebin_local` / `rebin_pull`, which is the plain version of the rebin
-kernel in `ops/rebin_cuda.py`. The cell-id arithmetic follows the JAX
+kernels in `ops/rebin_cuda.py`; `rebin_push` mirrors those kernels'
+two phases for the tests. The cell-id arithmetic follows the JAX
 package op for op, so the f32 layout is bit-identical to it; a
 Simulation runs it on `RebinConstants` built once per geometry on the
 device, so a rebin copies nothing from the host.
@@ -276,7 +277,7 @@ class RebinConstants:
     def build(geom: CellGeometry, dtype, device) -> "RebinConstants":
         C, M = geom.capacity, geom.nslots
         return RebinConstants(
-            *_cell_columns(geom, dtype, device),
+            *cell_columns(geom, dtype, device),
             slot_cell=torch.arange(M, dtype=torch.int32, device=device) // C,
             slot_rank=torch.arange(C, dtype=torch.int32, device=device)[None],
             sentinel=sentinel_positions(M, dtype, device))
@@ -288,7 +289,7 @@ class RebinConstants:
                              f"{x.device}")
 
 
-def _cell_columns(geom: CellGeometry, dtype, device):
+def cell_columns(geom: CellGeometry, dtype, device):
     """coord_to_cell's (3, 1) columns: prd, offset, 1/binsize in dtype and
     nb - 1 in int32."""
     return (_per_dim(geom.prd, dtype, device),
@@ -316,7 +317,7 @@ def coord_to_cell(xw: torch.Tensor, geom: CellGeometry, consts=None):
     dtype. consts: RebinConstants for xw's dtype and device (built here
     when None)."""
     if consts is None:
-        prd, off, inv, nbm1 = _cell_columns(geom, xw.dtype, xw.device)
+        prd, off, inv, nbm1 = cell_columns(geom, xw.dtype, xw.device)
     else:
         consts.check(xw)
         prd, off, inv, nbm1 = (consts.prd, consts.offset, consts.inv,
@@ -425,19 +426,17 @@ def rebin_pull(cid, chans, geom: CellGeometry):
     return [o.reshape(ncells, C) for o in outs], counts, cap_ovf
 
 
-def rebin_local(x, v, typ, geom: CellGeometry, pull=None, consts=None):
+def rebin_local(x, v, typ, geom: CellGeometry, consts=None):
     """Locality-aware rebin: every cell pulls its new occupants from its
     27-cell neighborhood (no global sort). Correctness rests on the skin
     guarantee: an atom moves at most one cell between rebinnings; atoms
     that moved further are counted in `overflow`, as are atoms that did not
-    fit their cell. Needs min(nb) >= 3.
+    fit their cell. Needs min(nb) >= 3. The plain version of the rebin
+    kernels of ops/rebin_cuda.py, which compute the same outputs bit for
+    bit (in the order of rebin_push).
 
-    pull(cid, chans) -> (outs, counts, cap_overflow) does the placement:
-    the plain `rebin_pull` by default, the kernel wrapper of
-    ops/rebin_cuda.py on the card. The elementwise prologue (wrap, cell
-    id, movement guard) and epilogue (sentinels on unoccupied slots) are
-    shared. consts: RebinConstants for x's dtype and device, built once
-    per geometry by the caller (built here when None, the same values).
+    consts: RebinConstants for x's dtype and device, built once per
+    geometry by the caller (built here when None, the same values).
     Returns (x, v, typ, overflow)."""
     nbx, nby, nbz = geom.nb
     M = geom.nslots
@@ -463,10 +462,7 @@ def rebin_local(x, v, typ, geom: CellGeometry, pull=None, consts=None):
     overflow = (valid & ~ok).sum().to(torch.int32)
 
     chans = [xs[0], xs[1], xs[2], v[0], v[1], v[2], typ]
-    if pull is None:
-        outs, counts, cap_ovf = rebin_pull(cid, chans, geom)
-    else:
-        outs, counts, cap_ovf = pull(cid, chans)
+    outs, counts, cap_ovf = rebin_pull(cid, chans, geom)
 
     occ = (k.slot_rank < counts[:, None]).reshape(M)
     sent = k.sentinel
@@ -476,3 +472,76 @@ def rebin_local(x, v, typ, geom: CellGeometry, pull=None, consts=None):
                          for d in range(3)])
     new_t = torch.where(occ, outs[6].reshape(M), 0)
     return new_x, new_v, new_t, overflow + cap_ovf
+
+
+def _axis_offset(old, new, n):
+    """Per-axis pull offset d in {-1, 0, 1} with old == (new + d) mod n,
+    and whether there is one (n >= 3: at most one d fits)."""
+    d = old - new
+    d = torch.where(d == n - 1, -1, torch.where(d == 1 - n, 1, d))
+    return d, d.abs() <= 1
+
+
+def rebin_push(x, v, typ, geom: CellGeometry, consts=None):
+    """The plain mirror of the two phases of the rebin kernels
+    (csrc/rebin.cu), bit for bit rebin_local's outputs. Only the tests
+    call it.
+
+    1. (rebin_bin) Each valid slot is keyed by its pull offset j (the
+       PULL_OFFSETS index with old cell == new cell + PULL_OFFSETS[j]); a
+       slot that moved further than one cell is lost: counted in the
+       overflow and never placed. Per source cell: the count and start of
+       each key (cnt, start) and its placed slots sorted by key, each
+       key's in slot order (perm).
+    2. (rebin_gather) Destination t's base of key j is the exclusive
+       prefix over j of cnt[t + PULL_OFFSETS[j]][j], the running base of
+       rebin_pull's scan of t's neighbor cells. Slot r < min(count, C) of
+       t takes slot perm[start + r - base] of the source of the key whose
+       range holds r; the slots left take sentinels and zeros.
+    Returns (x, v, typ, overflow)."""
+    nbx, nby, nbz = geom.nb
+    C, M, ncells = geom.capacity, geom.nslots, geom.ncells
+    k = consts or RebinConstants.build(geom, x.dtype, x.device)
+    k.check(x)
+    dev = x.device
+
+    valid = is_valid(x)
+    cid, xs = coord_to_cell(pbc_wrap(x, k.prd), geom, k)
+
+    def axes(c):
+        return c % nbx, (c // nbx) % nby, c // (nbx * nby)
+
+    (dx, okx), (dy, oky), (dz, okz) = (
+        _axis_offset(o, c, n) for o, c, n in
+        zip(axes(k.slot_cell), axes(cid), (nbx, nby, nbz)))
+    placed = valid & okx & oky & okz
+    lost = valid & ~placed
+
+    # phase 1: keys (27 for the slots not placed), cnt, start, perm
+    key = torch.where(placed, (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1), 27
+                      ).long().reshape(ncells, C)
+    perm = torch.argsort(key, dim=1, stable=True)
+    cnt = torch.zeros((ncells, 28), dtype=torch.long, device=dev
+                      ).scatter_add_(1, key, torch.ones_like(key))[:, :27]
+    start = torch.cumsum(cnt, dim=1) - cnt
+
+    # phase 2: each destination's base per key, in PULL_OFFSETS order
+    tx, ty, tz = axes(torch.arange(ncells, device=dev)[:, None])
+    off = torch.tensor(PULL_OFFSETS, device=dev)
+    src = ((((tz + off[:, 2]) % nbz) * nby + (ty + off[:, 1]) % nby) * nbx
+           + (tx + off[:, 0]) % nbx)
+    inc = cnt.gather(0, src)        # inc[t][j] = cnt[src[t][j]][j]
+    base = torch.cumsum(inc, dim=1) - inc
+    count = inc.sum(dim=1)
+    # slot r of t: the last key whose base is <= r, its source and slot
+    r = torch.arange(C, device=dev)
+    j = (base[:, None, :] <= r[None, :, None]).sum(dim=-1) - 1
+    s = src.gather(1, j)
+    at = (start[s, j] + r - base.gather(1, j)).clamp(0, C - 1)
+    m = (s * C + perm[s, at]).reshape(M)
+    own = (r < count.clamp(max=C)[:, None]).reshape(M)
+    new_x = torch.where(own, xs[:, m], k.sentinel)
+    new_v = torch.where(own, v[:, m], 0.0)
+    new_t = torch.where(own, typ[m], 0)
+    overflow = lost.sum() + (count - C).clamp(min=0).sum()
+    return new_x, new_v, new_t, overflow.to(torch.int32)

@@ -1,0 +1,316 @@
+// The whole local rebin for Hopper (sm_90a): wrap, cell id, movement
+// guard, placement and sentinels in two launches, bit for bit
+// cells.rebin_local.
+//
+// Replaces: minimd_tpu/ops/rebin_pallas.py:49 make_rebin_pull_pallas and
+// :217 make_rebin_pull_slab (the one-hot pull: each destination cell
+// scans its 27 neighbor cells for the atoms that land in it) and the glue
+// of :370-466 make_rebin_pallas around them (wrap, cell id, movement
+// guard, the overflow sum, the sentinel fill), which the JAX package
+// runs in one jitted function.
+//
+// What bounds it on the H100: bytes. The rebin reads x, v, typ (7 words
+// a slot) and writes them (7 words), 56 B x M, with a few integer and
+// float operations a slot. The pull that came before was bound by
+// latency instead: one warp per destination cell read the new cell ids
+// of its 27 neighbor cells in 27 * ceil(C/32) dependent steps, and some
+// fifty small torch launches around it cost ~1 ms of host time a rebin.
+//
+// What the design does about it: each source slot's cell id is computed
+// once, and the pull's order (destination t takes its neighbor cells in
+// PULL_OFFSETS order, dz outer, dy, dx inner, and their slots ascending)
+// is rebuilt from per-cell counts instead of scans.
+// 1. rebin_bin, one warp per source cell over its C slots, 32 at a time:
+//    wrap and cell id with the op sequence of cells.pbc_wrap and
+//    coord_to_cell (__fadd_rn / __fsub_rn / __fmul_rn, so nothing
+//    contracts), the movement guard (a valid slot whose new cell is more
+//    than one cell away on an axis is lost: counted, never placed), and
+//    a key j per placed slot with old cell == new cell + PULL_OFFSETS[j].
+//    __match_any_sync ranks a slot among the cell's earlier slots with
+//    the same key (the counts carried across chunks in shared memory).
+//    The cell's placed slots go out sorted by key, each key's in rank
+//    order (perm), with the count and start of each key (cs).
+// 2. rebin_gather, one warp per destination cell t: lane j reads the
+//    count of key j in source cell t + PULL_OFFSETS[j]; an exclusive warp
+//    scan over j gives the base of each key in t, the total t's count
+//    (the capacity overflow max(count - C, 0) is added). Slot r < min(
+//    count, C) of t takes the source slot perm[start_j + r - base_j] of
+//    the key j whose range holds r: its storage coordinates (recomputed
+//    bit for bit as in phase 1), v and typ. The slots left take sentinel
+//    positions, zero velocity and type 0. Every lane writes its own
+//    slots, so each row of t is written whole, in order, by one warp.
+// The overflow is summed with integer atomics: exact, so the order does
+// not matter. About 76 B a slot move in all (x read twice).
+//
+// A first design in three launches (keys and ranks; bases and sentinels;
+// one thread a source slot scattering it to base + rank) was
+// bit-identical too but slower at 131k and at 864k atoms, most at 864k,
+// where its scatter and its sentinel fill wrote parts of the same rows
+// from two kernels.
+//
+// The neighbor mapping is one function, `neighbor`, that wraps
+// periodically; phase 1 finds a slot's key and phase 2 its sources with
+// it. The sharded migration (dead-cell padding on decomposed axes,
+// rebin_pallas.py:49-63) has it report an off-grid cell there, which
+// makes the slot a leaver. Needs min(nb) >= 3 (then at most one key fits
+// a pair of cells) and C <= 512 (a rank and a start fit 16 bits).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kOffsets = 27;       // PULL_OFFSETS
+constexpr int kWarpsPerBlock = 4;  // one cell a warp
+constexpr int kMaxCapacity = 512;  // cells.MAX_CAPACITY
+constexpr int kNoKey = -1;
+
+struct Grid {
+  int nbx, nby, nbz, C;
+  long long M;                     // ncells * C
+  float prd[3], off[3], inv[3];    // RebinConstants' f32 values
+  float valid_below;
+};
+
+// The cell u + d on an axis of n cells, wrapped periodically (d in
+// {-1, 0, 1}, u in [0, n)).
+__device__ __forceinline__ int neighbor(int u, int d, int n) {
+  const int w = u + d;
+  return w < 0 ? w + n : (w >= n ? w - n : w);
+}
+
+// The pull offset d in {-1, 0, 1} with old == neighbor(now, d, n), or 2.
+__device__ __forceinline__ int axis_offset(int old, int now, int n) {
+  for (int d = -1; d <= 1; ++d)
+    if (neighbor(now, d, n) == old) return d;
+  return 2;
+}
+
+// cells.pbc_wrap then cells.coord_to_cell on one axis: the storage
+// coordinate (xs) and the clamped cell index, op for op.
+__device__ __forceinline__ int axis_cell(float x, float p, float off,
+                                         float inv, int n, float* xs) {
+  float xw = x < 0.f ? __fadd_rn(x, p) : x;
+  xw = xw >= p ? __fsub_rn(xw, p) : xw;
+  float g = __fsub_rn(xw, off);
+  const bool neg = g < 0.f;
+  *xs = neg ? __fadd_rn(xw, p) : xw;
+  g = neg ? __fadd_rn(g, p) : g;
+  const int i = (int)__fmul_rn(g, inv);  // truncates, as .to(torch.int32)
+  return min(max(i, 0), n - 1);
+}
+
+// The sum of c over lanes 0..lane (a scan in lane order).
+__device__ __forceinline__ int warp_inclusive_sum(int c, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, c, o);
+    if (lane >= o) c += y;
+  }
+  return c;
+}
+
+__global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
+                                 const float* __restrict__ x,
+                                 int* __restrict__ perm,
+                                 int* __restrict__ cs,
+                                 int* __restrict__ overflow) {
+  __shared__ int seen[kWarpsPerBlock][32];
+  __shared__ int keys[kWarpsPerBlock][kMaxCapacity];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cell = blockIdx.x * kWarpsPerBlock + warp;
+  const int ncells = g.nbx * g.nby * g.nbz;
+  if (cell >= ncells) return;  // whole warps leave together
+  const unsigned below = (1u << lane) - 1u;
+  const int n[3] = {g.nbx, g.nby, g.nbz};
+  const int old[3] = {cell % g.nbx, (cell / g.nbx) % g.nby,
+                      cell / (g.nbx * g.nby)};
+  const long long row = (long long)cell * g.C;
+  seen[warp][lane] = 0;
+  __syncwarp();
+
+  // keys and ranks, chunk by chunk; the next chunk's positions are in
+  // flight while one is ranked
+  int lost = 0;
+  float nx[3] = {0.f, 0.f, 0.f};
+  if (lane < g.C) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) nx[a] = x[a * g.M + row + lane];
+  }
+  for (int s0 = 0; s0 < g.C; s0 += 32) {
+    const int s = s0 + lane;
+    const float xv[3] = {nx[0], nx[1], nx[2]};
+    if (s + 32 < g.C) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) nx[a] = x[a * g.M + row + s + 32];
+    }
+    const bool valid = s < g.C && xv[0] < g.valid_below;
+    int j = kNoKey;
+    if (valid) {
+      int d[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float xs;
+        const int c = axis_cell(xv[a], g.prd[a], g.off[a], g.inv[a], n[a],
+                                &xs);
+        d[a] = axis_offset(old[a], c, n[a]);
+      }
+      if (d[0] != 2 && d[1] != 2 && d[2] != 2)
+        j = (d[2] + 1) * 9 + (d[1] + 1) * 3 + (d[0] + 1);
+    }
+    // slots without a key match only themselves
+    const unsigned peers =
+        __match_any_sync(0xffffffffu, j != kNoKey ? j : 32 + lane);
+    const int prior = j != kNoKey ? seen[warp][j] : 0;
+    const int r = __popc(peers & below);
+    __syncwarp();
+    if (j != kNoKey && r == 0) seen[warp][j] = prior + __popc(peers);
+    __syncwarp();
+    if (s < g.C) keys[warp][s] = j != kNoKey ? (j << 16) | (prior + r) : kNoKey;
+    lost += __popc(__ballot_sync(0xffffffffu, valid && j == kNoKey));
+  }
+
+  // the cell's placed slots sorted by key, each key's in rank order
+  const int c = lane < kOffsets ? seen[warp][lane] : 0;
+  const int start = warp_inclusive_sum(c, lane) - c;
+  __syncwarp();
+  seen[warp][lane] = start;
+  if (lane < kOffsets) cs[cell * kOffsets + lane] = (start << 16) | c;
+  __syncwarp();
+  for (int s = lane; s < g.C; s += 32) {
+    const int k = keys[warp][s];
+    if (k != kNoKey) perm[row + seen[warp][k >> 16] + (k & 0xffff)] = s;
+  }
+  if (lane == 0 && lost) atomicAdd(overflow, lost);
+}
+
+__global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
+                                    const float* __restrict__ x,
+                                    const float* __restrict__ v,
+                                    const int* __restrict__ typ,
+                                    const int* __restrict__ perm,
+                                    const int* __restrict__ cs,
+                                    float* __restrict__ x_out,
+                                    float* __restrict__ v_out,
+                                    int* __restrict__ t_out,
+                                    int* __restrict__ overflow) {
+  __shared__ int base[kWarpsPerBlock][32];  // per key; lanes 27-31: count
+  __shared__ long long src_row[kWarpsPerBlock][kOffsets];
+  __shared__ int src_start[kWarpsPerBlock][kOffsets];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kWarpsPerBlock + warp;
+  const int ncells = g.nbx * g.nby * g.nbz;
+  if (t >= ncells) return;
+  const int C = g.C;
+  const long long M = g.M;
+  const int n[3] = {g.nbx, g.nby, g.nbz};
+  const int tx = t % g.nbx, ty = (t / g.nbx) % g.nby, tz = t / (g.nbx * g.nby);
+  int c = 0;
+  if (lane < kOffsets) {
+    const int src = (neighbor(tz, lane / 9 - 1, g.nbz) * g.nby
+                     + neighbor(ty, (lane / 3) % 3 - 1, g.nby)) * g.nbx
+                    + neighbor(tx, lane % 3 - 1, g.nbx);
+    const int p = cs[src * kOffsets + lane];
+    c = p & 0xffff;
+    src_row[warp][lane] = (long long)src * C;
+    src_start[warp][lane] = p >> 16;
+  }
+  const int inc = warp_inclusive_sum(c, lane);
+  const int count = __shfl_sync(0xffffffffu, inc, kOffsets - 1);
+  base[warp][lane] = inc - c;
+  __syncwarp();
+  if (lane == 0 && count > C) atomicAdd(overflow, count - C);
+
+  // two slots of t a lane at a time, their loads in flight together
+  const int filled = min(count, C);
+  for (int r0 = lane; r0 < C; r0 += 64) {
+    long long m[2] = {0, 0};
+    bool own[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 32 * h;
+      own[h] = r < filled;
+      if (own[h]) {
+        int j = 0;  // the last key whose base is <= r
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (j + step < kOffsets && base[warp][j + step] <= r) j += step;
+        m[h] = src_row[warp][j]
+               + perm[src_row[warp][j] + src_start[warp][j]
+                      + (r - base[warp][j])];
+      }
+    }
+    float xv[2][3], vv[2][3];
+    int tv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (own[h]) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          xv[h][a] = x[a * M + m[h]];
+          vv[h][a] = v[a * M + m[h]];
+        }
+        tv[h] = typ[m[h]];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 32 * h;
+      if (r >= C) break;
+      const long long d = (long long)t * C + r;
+      if (own[h]) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          float xs;
+          axis_cell(xv[h][a], g.prd[a], g.off[a], g.inv[a], n[a], &xs);
+          x_out[a * M + d] = xs;
+          v_out[a * M + d] = vv[h][a];
+        }
+        t_out[d] = tv[h];
+      } else {
+        // cells.sentinel_positions: arange * 1e3 + 1e6, each op rounded
+        // in f32
+        x_out[d] = __fadd_rn(__fmul_rn((float)d, 1.0e3f), 1.0e6f);
+        x_out[M + d] = x_out[2 * M + d] = 0.f;
+        v_out[d] = v_out[M + d] = v_out[2 * M + d] = 0.f;
+        t_out[d] = 0;
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// x, v: (3, M) float32; typ: (M,) int32; x_out, v_out, t_out: the same
+// shapes, written in full; scratch: (M + 27 * ncells) int32 (perm, cs);
+// overflow: one int32, zeroed here. prd, off, inv: the f32
+// RebinConstants (box, grid offset, 1/binsize) per axis. Launches both
+// phases on `stream` and returns the first cudaGetLastError() that is
+// not 0.
+extern "C" int rebin_launch(const void* x, const void* v, const void* typ,
+                            void* x_out, void* v_out, void* t_out,
+                            void* scratch, void* overflow,
+                            int nbx, int nby, int nbz, int C,
+                            float prdx, float prdy, float prdz,
+                            float offx, float offy, float offz,
+                            float invx, float invy, float invz,
+                            float valid_below, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int ncells = nbx * nby * nbz;
+  const Grid g{nbx, nby, nbz, C, (long long)ncells * C,
+               {prdx, prdy, prdz}, {offx, offy, offz}, {invx, invy, invz},
+               valid_below};
+  int* perm = (int*)scratch;
+  int* cs = perm + g.M;
+  int* ovf = (int*)overflow;
+  cudaMemsetAsync(ovf, 0, sizeof(int), s);
+  int rc = (int)cudaGetLastError();
+  const int blocks = (ncells + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  rebin_bin_kernel<<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+      g, (const float*)x, perm, cs, ovf);
+  if (!rc) rc = (int)cudaGetLastError();
+  rebin_gather_kernel<<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+      g, (const float*)x, (const float*)v, (const int*)typ, perm, cs,
+      (float*)x_out, (float*)v_out, (int*)t_out, ovf);
+  if (!rc) rc = (int)cudaGetLastError();
+  return rc;
+}

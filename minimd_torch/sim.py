@@ -10,15 +10,15 @@ The device decides the path (force_path, the JAX package's own choice
 with the card in the place of the TPU). On CUDA, in float32 with stencil
 reach 1: the LJ kernel (ops/lj_cuda.py, type-uniform parameters) or the
 two EAM kernels (ops/eam_cuda.py) and, when every axis has at least 3
-cells, the pull rebin kernel (ops/rebin_cuda.py); smaller grids use the
+cells, the rebin kernels (ops/rebin_cuda.py); smaller grids use the
 sort-based rebin_lean, the JAX package's own geometry rule. Outside that
 envelope the card runs what the JAX package runs on its accelerator: the
 plain LJ grid (ops/lj_grid.py) for float64, reach > 1 or per-type
 tables; the plain EAM grid (ops/eam_grid.py) for float32 with reach > 1;
 the exact-spline EAM force (ops/eam.py) for float64. On the CPU: the
 plain LJ grid, the exact-spline EAM force (what the JAX package runs on
-its CPU) and cells.rebin_local / rebin_lean, in any dtype. The rebin
-glue's constants are built once per geometry on the device.
+its CPU) and cells.rebin_local / rebin_lean, in any dtype, on
+constants built once per geometry on the device.
 
 fused_step=True (LJ, f32, thermo_nstat > 0, as in the JAX package) runs
 each interval's plain steps through the fused step (ops/lj_step_cuda.py on
@@ -28,7 +28,7 @@ kicks and the drift.
 half_neigh=True is the Newton half-neighbor parity option on every device
 (ops/lj_half.py with both ghost_newton variants, ops/eam_half.py): plain
 torch, as the JAX package's half path is XLA, in any dtype; on CUDA the
-pull rebin kernel still runs it when the state is float32.
+rebin kernels still run it when the state is float32.
 
 run_timed() runs the same steps as run() with phase timers (FORCE, NEIGH)
 and a card sync at every stamp.
@@ -226,7 +226,7 @@ class Simulation:
             # under 3 cells on an axis the +-1 pull would alias cells:
             # sort-based placement; a float64 state on the card takes the
             # plain pull, as the JAX package's Pallas pull is f32 only.
-            # The glue's constants are built once per geometry.
+            # The constants are built once per geometry.
             rebin = cells.rebin_lean if min(geom.nb) < 3 else \
                 cells.rebin_local
             self.rebin_fn = functools.partial(

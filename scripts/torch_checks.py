@@ -44,12 +44,17 @@
         (rho, fp, the embed partials, f, eng, vir) on the EAM deck (ev and
         noev), also on chip_smoke.py's EAM lattice of twice the density
         ("dense", where the EAM kernels hand their stage and lists over
-        early); and the final x, v and thermo rows of a real run at 131k
+        early); the rebin's x, v, typ and overflow on those LJ shapes with
+        at least 3 cells an axis and on chip_smoke.py's REBIN_SHAPES (a
+        (3,3,3) grid, the EAM 131k lattice, an overflowing capacity, a
+        teleporter); and the final x, v and thermo rows of a real run at 131k
         from each deck and EAM form (LJ run(200), EAM run(100) through the
         polynomial and through the gather-table kernels: a thermalised
         state whose cells can hold more than 32 atoms). Then it times
-        lj_force and lj_step, the four EAM kernels (noev and ev) at 131k
-        and 864k, and the main paths `runs` times each: LJ plain and
+        lj_force and lj_step, the four EAM kernels (noev and ev) and the
+        whole rebin (device ms with the queue kept full, the kernels' busy
+        ms, host us per call) at 131k and 864k, and
+        the main paths `runs` times each: LJ plain and
         fused_step (131k run(200), 864k run(100)) and EAM through the
         polynomial and the gather-table kernels (131k and 864k run(100)).
         The outputs must hash alike across all four processes.
@@ -225,16 +230,18 @@ def lj_parity_worker(runs):
     import torch
 
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (EAM_RHO_SCALE, EAM_SHAPES, LJ_SHAPES, cuda_ms,
-                            lattice, lj_params, rebinned, through_rows,
-                            timed_run)
+    from chip_smoke import (EAM_RHO_SCALE, EAM_SHAPES, LJ_SHAPES,
+                            REBIN_SHAPES, cuda_ms, host_us, lattice,
+                            lj_params, profiled, queued_ms, rebin_case,
+                            rebinned, through_rows, timed_run)
     from minimd_torch import cells
     from minimd_torch.ops import eam_cuda, eam_rows_cuda
     from minimd_torch.ops.eam import EAMTables
     from minimd_torch.ops.lj_cuda import make_lj_force_cuda
     from minimd_torch.ops.lj_step_cuda import make_lj_step_cuda
+    from minimd_torch.ops.rebin_cuda import make_rebin_cuda
 
-    out = {"hash": {}, "ms": {}, "rate": {}}
+    out = {"hash": {}, "ms": {}, "host_us": {}, "rate": {}}
     hashes = out["hash"]
     tables = EAMTables.from_funcfl()
 
@@ -257,8 +264,14 @@ def lj_parity_worker(runs):
                 hashes[f"{tag} force"] = _digest(*k_pair(x, fp, ev))
         return geom
 
+    def rebin_hash(label, geom, st, xp):
+        hashes[f"rebin {label} x v typ overflow"] = _digest(
+            *make_rebin_cuda(geom, "cuda")(xp, st.v, st.typ))
+
     for label, (s, nbins, cap) in LJ_SHAPES.items():
         inp, geom, st, xp = lattice(s, nbins, cap)
+        if min(geom.nb) >= 3:
+            rebin_hash(label, geom, st, xp)
         rebin = cells.rebin_local if min(geom.nb) >= 3 else cells.rebin_lean
         x, v, typ, _ = rebin(xp, st.v, st.typ, geom)
         params = lj_params(inp)
@@ -286,6 +299,11 @@ def lj_parity_worker(runs):
         print(f"[lj-parity-hash] {label} EAM nb={geom.nb} C={geom.capacity}"
               f": {sum(1 for k in hashes if f' {label} ' in k)} outputs",
               flush=True)
+    for label in REBIN_SHAPES:
+        geom, st, xp = rebin_case(label)
+        rebin_hash(label, geom, st, xp)
+        print(f"[lj-parity-hash] {label} rebin nb={geom.nb} C={geom.capacity}"
+              ": 1 output", flush=True)
     for deck, steps, form in (("lj", 200, ""), ("eam", 100, ""),
                               ("eam", 100, " rows")):
         sim = _sim(deck, 32)
@@ -314,6 +332,18 @@ def lj_parity_worker(runs):
                 ("lj_step", lambda: k_step(x1, w1, False, out=spare)),
                 ("lj_step_ev", lambda: k_step(x1, w1, True, out=spare))):
             out["ms"][f"{name} {label}"] = cuda_ms(fn, iters)
+        # the whole rebin: device ms with the queue kept full, the card's
+        # busy time per call (torch.profiler: the kernels alone, where
+        # the host issues the parent's slower than the card runs them)
+        # and the host's time to issue one
+        rebin = make_rebin_cuda(geom, "cuda")
+        out["ms"][f"rebin {label}"] = queued_ms(
+            lambda: rebin(xp, st.v, st.typ), iters)
+        busy = profiled(lambda: [rebin(xp, st.v, st.typ)
+                                 for _ in range(iters)])[1]
+        out["ms"][f"rebin_busy {label}"] = busy / iters
+        out["host_us"][f"rebin {label}"] = host_us(
+            lambda: rebin(xp, st.v, st.typ), iters)
         _, geom, st, xp = lattice(s, deck="eam", kick=0.08)
         x = rebinned(geom, st, xp)
         for kind, rho_fn, pair_fn in (
@@ -379,11 +409,14 @@ def lj_parity(repo, runs):
               f"({first[k]})", flush=True)
     summary = {"identical": len(first) - len(differ), "differ": differ,
                "turns": [n for n, _ in got]}
-    for key in ("ms", "rate"):
+    for key in ("ms", "host_us", "rate"):
         summary[key] = {k: [g[key][k] for _, g in got] for k in got[0][1][key]}
     for k, vals in summary["ms"].items():
         print(f"[lj-parity-ms] {k} P C C P: "
               + " ".join(f"{v:.4f}" for v in vals), flush=True)
+    for k, vals in summary["host_us"].items():
+        print(f"[lj-parity-host-us] {k} P C C P: "
+              + " ".join(f"{v:.1f}" for v in vals), flush=True)
     for k, vals in summary["rate"].items():
         med = [statistics.median(v) for v in vals]
         print(f"[lj-parity-rate] {k} medians P C C P: "

@@ -1,5 +1,6 @@
 """minimd_torch cell pipeline held against minimd_tpu on the CPU: geometry,
-initial placement and the plain pull rebin must be exact."""
+initial placement, the plain pull rebin and the push mirror of the rebin
+kernels must be exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -69,39 +70,94 @@ def test_init_state_bit_identical(dtype):
     assert int(sj.overflow) == st.overflow == 0
 
 
-def _perturbed(nbins, seed=7):
-    """tests/test_cells.py:87-96: n=8 lattice, one type, ±0.12 per
-    coordinate."""
+def _perturbed(nbins, seed=7, capacity=None, ntypes=1, dtype=torch.float32,
+               kick=0.12):
+    """tests/test_cells.py:87-96: n=8 lattice, one type (or ntypes of
+    create.assign_types), +-kick per coordinate (0.12 there), laid out by
+    the port's init_state (bit-identical to the JAX package's:
+    test_init_state_bit_identical)."""
     inp, box, x, v = _lattice(8)
-    geom = cells.build_geometry(box.prd, inp.neigh_cut, x, nbins=nbins)
-    sj = jax_init_state(x, v, np.zeros(len(x), np.int32), geometry_cells(geom),
-                        dtype=jnp.float32)
+    geom = cells.build_geometry(box.prd, inp.neigh_cut, x, nbins=nbins,
+                                capacity=capacity)
+    typ = (create.assign_types(len(x), ntypes) if ntypes > 1
+           else np.zeros(len(x), np.int32))
+    st = init_state(x, v, typ, geom, dtype=dtype)
+    xs = st.x.numpy()
     rng = np.random.default_rng(seed)
-    xd = np.asarray(sj.x) + (0.12 * np.sign(rng.normal(size=sj.x.shape))
-                             ).astype(np.float32)
-    return geom, xd, np.asarray(sj.v), np.asarray(sj.typ)
+    xd = xs + (kick * np.sign(rng.normal(size=xs.shape))).astype(xs.dtype)
+    return geom, xd, st.v.numpy(), st.typ.numpy()
 
 
-@pytest.mark.parametrize("nbins,C", [(None, 48), ((6, 6, 6), 24)])
-def test_rebin_local_bit_identical(nbins, C):
+# the rebin's cases: name -> (nbins, capacity, C, ntypes, dtype, kick,
+# teleport); the first two keep their first ids
+REBIN_CASES = {
+    "None-48": (None, None, 48, 1, torch.float32, 0.12, False),
+    "nbins1-24": ((6, 6, 6), None, 24, 1, torch.float32, 0.12, False),
+    # every neighbor of every cell wraps
+    "nb3": ((3, 3, 3), None, 112, 1, torch.float32, 0.12, False),
+    "types4": (None, None, 48, 4, torch.float32, 0.12, False),
+    "float64": (None, None, 48, 1, torch.float64, 0.12, False),
+    # 32 atoms a cell laid out at C = 32: kicked cells take more than C
+    "overflow": (None, 32, 32, 1, torch.float32, 0.5, False),
+    # one atom moved by half the box: lost, counted, not placed
+    "teleporter": (None, None, 48, 4, torch.float32, 0.12, True),
+}
+OVERFLOWING = ("overflow", "teleporter")
+_JAX_REBIN = {}
+
+
+def _rebin_case(name):
+    """(geom, x, v, typ) numpy inputs of a REBIN_CASES case."""
+    nbins, cap, C, ntypes, dtype, kick, teleport = REBIN_CASES[name]
+    geom, xd, v, typ = _perturbed(nbins, capacity=cap, ntypes=ntypes,
+                                  dtype=dtype, kick=kick)
+    assert geom.capacity == C
+    if teleport:
+        xd[0, int(np.argmax(xd[0] < cells.VALID_BELOW))] += geom.prd[0] * 0.5
+    return geom, xd, v, typ
+
+
+def _jax_rebin_local(geom):
+    """minimd_tpu.cells.rebin_local under jax.jit, one per grid."""
     import jax
 
-    geom, xd, v, typ = _perturbed(nbins)
-    assert geom.capacity == C
-    gj = geometry_cells(geom)
-    xr, vr, tr, ov = jax.jit(lambda a, b, c: jcells.rebin_local(a, b, c, gj))(
-        xd, v, typ)
-    xt, vt, tt, ot = cells.rebin_local(_t(xd), _t(v), _t(typ), geom)
-    assert int(ov) == int(ot) == 0
-    np.testing.assert_array_equal(np.asarray(xr), xt.numpy())
-    np.testing.assert_array_equal(np.asarray(vr), vt.numpy())
-    np.testing.assert_array_equal(np.asarray(tr), tt.numpy())
-    assert tt.dtype == torch.int32
+    key = (geom.nb, geom.capacity)
+    if key not in _JAX_REBIN:
+        gj = geometry_cells(geom)
+        _JAX_REBIN[key] = jax.jit(
+            lambda a, b, c: jcells.rebin_local(a, b, c, gj))
+    return _JAX_REBIN[key]
 
-    # the kernel wrapper takes the plain pull for a CPU tensor
-    xk, vk, tk, ok = make_rebin_cuda(geom, "cpu")(_t(xd), _t(v), _t(typ))
-    assert int(ok) == 0
-    assert torch.equal(xk, xt) and torch.equal(vk, vt) and torch.equal(tk, tt)
+
+@pytest.mark.parametrize("case", list(REBIN_CASES))
+def test_rebin_local_bit_identical(case):
+    """rebin_local against the JAX package's (where nothing overflows;
+    the two differ in what an overflowing cell keeps), the push mirror of
+    the rebin kernels' phases (cells.rebin_push) against rebin_local, and
+    the kernel wrapper on a CPU tensor: x, v, typ and overflow bit for
+    bit."""
+    geom, xd, v, typ = _rebin_case(case)
+    args = [_t(a) for a in (xd, v, typ)]
+    xt, vt, tt, ot = want = cells.rebin_local(*args, geom)
+    assert (int(ot) > 0) == (case in OVERFLOWING)
+    assert tt.dtype == torch.int32 and xt.dtype == args[0].dtype
+    if case not in OVERFLOWING:
+        xr, vr, tr, ov = _jax_rebin_local(geom)(xd, v, typ)
+        assert int(ov) == 0
+        np.testing.assert_array_equal(np.asarray(xr), xt.numpy())
+        np.testing.assert_array_equal(np.asarray(vr), vt.numpy())
+        np.testing.assert_array_equal(np.asarray(tr), tt.numpy())
+
+    got = cells.rebin_push(*args, geom)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[3].dtype == torch.int32
+
+    # the kernel wrapper takes the plain rebin_local for a CPU tensor
+    got = make_rebin_cuda(geom, "cpu")(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # and one made for the card refuses them instead of falling back
+    with pytest.raises(ValueError, match="rebin made for cuda"):
+        make_rebin_cuda(geom, "cuda")(*args)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -145,14 +201,18 @@ def test_rebin_lean_keeps_atoms_on_small_grid():
 
 
 def test_rebin_local_detects_teleporters():
-    """tests/test_cells.py:51-58: an atom moved by half the box is counted."""
+    """tests/test_cells.py:51-58: an atom moved by half the box is counted,
+    and neither rebin_local nor the push mirror of the kernels places it."""
     inp, box, x, v = _lattice(10)
     geom = cells.build_geometry(box.prd, inp.neigh_cut, x)
     st = init_state(x, v, create.assign_types(len(x), 4), geom)
     xt = st.x.clone()
     xt[0, 0] += float(geom.prd[0]) * 0.5
-    _, _, _, ovf = cells.rebin_local(xt, st.v, st.typ, geom)
-    assert int(ovf) >= 1
+    want = cells.rebin_local(xt, st.v, st.typ, geom)
+    got = cells.rebin_push(xt, st.v, st.typ, geom)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(want[3]) == 1
+    assert int(cells.is_valid(want[0]).sum()) == len(x) - 1
 
 
 def test_state_from_numpy_round_trip():
@@ -179,13 +239,20 @@ def test_state_from_numpy_round_trip():
 
 
 @pytest.mark.cuda
-def test_rebin_kernel_bit_identical_on_card():
-    """The CUDA pull against the plain pull on the card (chip_smoke.py runs
-    the same at full sizes)."""
+@pytest.mark.parametrize("case", list(REBIN_CASES))
+def test_rebin_kernel_bit_identical_on_card(case):
+    """The rebin kernels against the plain rebin_local on the card, on
+    test_rebin_local_bit_identical's cases (chip_smoke.py runs the same at
+    full sizes); a float64 state is refused."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
-    geom, xd, v, typ = _perturbed(None)
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    geom, xd, v, typ = _rebin_case(case)
     args = [_t(a).cuda() for a in (xd, v, typ)]
-    got = make_rebin_cuda(geom, "cuda")(*args)
+    rebin = make_rebin_cuda(geom, "cuda")
+    if args[0].dtype != torch.float32:
+        with pytest.raises(ValueError):
+            rebin(*args)
+        return
+    got = rebin(*args)
     want = cells.rebin_local(*args, geom)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
