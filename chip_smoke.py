@@ -75,7 +75,19 @@ Run from the root of a checkout. Phases, one line each:
 11. the CLI outside the kernels' envelope on both decks at -s 10:
    --precision 2 and -b 12 (stencil reach 2), on the JAX package's
    accelerator paths (plain LJ grid, exact-spline EAM, plain EAM grid),
-   rows against tests/golden/4k.*.
+   rows against tests/golden/4k.*;
+12. the decomposed run (minimd_torch/parallel) on this card's domains:
+   the sharded forms of lj_force, eam_rho, eam_force (every domain of
+   the card in one launch) on the 131k LJ and EAM lattices split
+   (2,2,2) and (4,2,1), per atom bit for bit the one-device kernels on
+   the same cells and within tolerance of their plain versions; the
+   migration with the sharded rebin kernels placing the residents, bit
+   for bit the plain exchange_rebin (and a teleporter, movement overflow
+   1); ShardedSimulation's 4k/10000 f32 gates, LJ and EAM on (2,2,2);
+   the 131k main paths on (2,2,2) with the sharded kernels' launches
+   counted; rates of Simulation and a 1-domain ShardedSimulation in
+   turns and of (2,2,2) on the card, with its host time per step, at
+   131k and 864k.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (inputs read once, outputs written once) over
@@ -87,8 +99,9 @@ written once (56 B a slot). No single PyTorch call computes any of the
 pair, rebin or FMA-chain functions, so their library_ms is null;
 copy_add's is torch.add(x, 1.0, out=y).
 
-Prints a JSON line of the 9 ported kernels, the rates, the probes' pins
-and the half paths' numbers, the card line, and last {"ok": true,
+Prints a JSON line of the 9 ported kernels and the 4 sharded forms, the
+rates, the probes' pins and the half paths' numbers, the card line, and
+last {"ok": true,
 "device": {...}}. Any failure raises: the exit code is then not 0 and no
 result line is printed.
 """
@@ -180,7 +193,9 @@ def ptxas_summary(log):
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             m = re.search(r"\d([a-z_]+_kernel)", mangled)
-            args = [a if a.isdigit() else ("noev", "ev")[int(a[1])]
+            flags = (("one", "sharded") if "rebin" in mangled
+                     else ("noev", "ev"))
+            args = [a if a.isdigit() else flags[int(a[1])]
                     for a in re.findall(r"Li(\d+)E|L(b[01])E", mangled)
                     for a in a if a]
             name = (m.group(1) if m else mangled) + (
@@ -394,7 +409,10 @@ def counters():
 
     return {"lj_force": lj_cuda.LAUNCHES, "rebin_pull": rebin_cuda.LAUNCHES,
             **eam_cuda.LAUNCHES, "lj_step": lj_step_cuda.LAUNCHES,
-            **eam_rows_cuda.LAUNCHES, **micro.LAUNCHES}
+            **eam_rows_cuda.LAUNCHES, **micro.LAUNCHES,
+            "lj_force_sharded": lj_cuda.SHARDED_LAUNCHES,
+            **eam_cuda.SHARDED_LAUNCHES,
+            "rebin_sharded": rebin_cuda.SHARDED_LAUNCHES}
 
 
 def reset_counters():
@@ -403,7 +421,9 @@ def reset_counters():
                                   lj_step_cuda, rebin_cuda)
 
     lj_cuda.LAUNCHES = rebin_cuda.LAUNCHES = lj_step_cuda.LAUNCHES = 0
-    for d in (eam_cuda.LAUNCHES, eam_rows_cuda.LAUNCHES, micro.LAUNCHES):
+    lj_cuda.SHARDED_LAUNCHES = rebin_cuda.SHARDED_LAUNCHES = 0
+    for d in (eam_cuda.LAUNCHES, eam_cuda.SHARDED_LAUNCHES,
+              eam_rows_cuda.LAUNCHES, micro.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -1274,6 +1294,446 @@ def checkpoint_phase(workdir, steps=100):
                              "checks")
 
 
+# ----------------------------------------------------------------------
+# the decomposed run (minimd_torch/parallel): the sharded kernel forms
+# ----------------------------------------------------------------------
+
+# the 131k lattices split over one card's domains: (px, py, pz)
+SHARD_SPLITS = {"222": (2, 2, 2), "421": (4, 2, 1)}
+
+
+@functools.lru_cache(maxsize=4)
+def sharded_lattice(deck, grid, s=32):
+    """The deck's lattice of size s (perturbed, rebinned, f32 on the card)
+    on a grid that the mesh (px, py, pz) divides, as ShardedSimulation
+    picks it, and its domains: (inp, geom, x, st, mesh, router, nb_local,
+    ShardedState). Cached: the callers read it and change none of it."""
+    import numpy as np
+    import torch
+
+    from minimd_torch import cells
+    from minimd_torch.parallel import mesh as pmesh
+    from minimd_torch.parallel import step as pstep
+    from minimd_torch.state import sharded_from_grid
+
+    inp, (prd, x_np, _, _, _) = _setup(deck, s)
+    nb = cells.autotune_grid(prd, inp.neigh_cut, x_np, solid=deck == "eam",
+                             multiple_of=grid)
+    _, geom, st, xp = lattice(s, nb, deck=deck,
+                              kick=0.12 if deck == "lj" else 0.08)
+    x = rebinned(geom, st, xp)
+    m = pmesh.make_mesh(["cuda"] * int(np.prod(grid)), prd, grid)
+    router = pmesh.Router(m)
+    nl = pstep.local_grid_shape(geom, m)
+    nbx, nby, nbz = geom.nb
+    C = geom.capacity
+
+    def g(t):
+        return t.reshape(((3,) if t.dim() == 2 else ()) + (nbz, nby, nbx, C))
+
+    ss = sharded_from_grid(g(x), g(st.v), g(torch.zeros_like(x)), g(st.typ),
+                           g(cells.is_valid(x)), m, geom)
+    return inp, geom, x, st, m, router, nl, ss
+
+
+def _gather(parts, m, geom, what=2):
+    """Per-domain (Dg, 3, M_local) or (Dg, M_local) tensors as one global
+    (3, M) or (M,) CUDA tensor in the global cell layout."""
+    import torch
+
+    from minimd_torch.state import ShardedState, sharded_to_grid
+
+    vec = parts[0].dim() == 3
+    ss = ShardedState(*([parts] * 5))
+    g = torch.from_numpy(sharded_to_grid(ss, m, geom)[what])
+    return g.reshape((3, -1) if vec else (-1,)).cuda()
+
+
+def compare_sharded(deck, label, grid, timing=False):
+    """The sharded pair kernels on every domain of a split 131k lattice:
+    per atom bit for bit the one-device kernel on the same cells, and
+    against their plain versions (lj_pair_loop / the padded EAM passes on
+    the kernels' padded input, on the card) within the one-device
+    tolerances. With timing: one domain's ms per call, its plain ms and
+    its bound, at this split. Returns ({kernel: max|err|}, times)."""
+    import torch
+
+    from minimd_torch.ops import eam_cuda, eam_grid
+    from minimd_torch.ops.eam import EAMTables
+    from minimd_torch.ops.lj_cuda import make_lj_force_cuda
+    from minimd_torch.ops.pairgrid import plain_padded
+    from minimd_torch.ops.lj_grid import lj_pair_loop
+    from minimd_torch.parallel import step as pstep
+
+    inp, geom, x, st, m, router, nl, ss = sharded_lattice(deck, grid)
+    dec = m.decomposed
+    kh = pstep.Halo(geom, m, router, 1, nl, torch.float32, wrap=False)
+    xk = router.split(kh.positions(ss.x))
+    D = m.size
+    Ml = ss.x[0].shape[-1]
+    err, t = {}, {}
+    if timing:   # every domain's halo, one gather and one add
+        t[f"halo_{deck}_ms"] = cuda_ms(lambda: kh.positions(ss.x), 50)
+    if deck == "lj":
+        params = lj_params(inp)
+        f1, e1, w1 = make_lj_force_cuda(geom, params)[0](x, st.typ)
+        k_ev, k_noev = make_lj_force_cuda(geom, params, nb_local=nl,
+                                          decomposed=dec)
+        X = kh.positions(ss.x)[0]          # (D, 3, stored), one group
+        fs, es, ws = k_ev(X, None)
+        outs = list(fs)
+        same = torch.equal(_gather([fs], m, geom), f1)
+        noev_same = torch.equal(k_noev(X, None)[0], fs)
+        e, w = float(es.sum()), float(ws.sum())
+        e_rel = abs(e - float(e1)) / abs(float(e1))
+        w_rel = abs(w - float(w1)) / abs(float(w1))
+
+        def plain(k, evflag=True):
+            fg, pe, pw = lj_pair_loop(plain_padded(geom, nl, dec, xk[k]),
+                                      None, geom, params, torch.float32,
+                                      evflag, nb_local=nl)
+            return torch.stack([a.reshape(Ml) for a in fg]), pe, pw
+
+        perr = scale = 0.0
+        for k in range(D):
+            fp_, _, _ = plain(k)
+            perr = max(perr, (fp_ - outs[k]).abs().max().item())
+            scale = max(scale, fp_.abs().max().item())
+        err["lj_force_sharded"] = perr
+        ok = (same and noev_same and perr / scale < F_TOL
+              and e_rel < 1e-5 and w_rel < 1e-5)
+        phase("compare", f"lj_force_sharded {label} mesh={grid} "
+              f"nb={geom.nb} local={nl} C={geom.capacity}: per-atom "
+              f"bit-identical to the one-device kernel={same} "
+              f"noev={noev_same} eng_rel={e_rel:.2e} vir_rel={w_rel:.2e}; "
+              f"vs plain max|df|/max|f|={perr / scale:.3e} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"sharded LJ kernel disagrees at {label}")
+        if timing:
+            n_cut, _ = count_pairs(geom, x, inp.force_cut)
+            M_in = xk[0].shape[-1]
+            # every domain in one launch; per domain: / D
+            t["lj_force_sharded"] = cuda_ms(lambda: k_noev(X, None), 50)
+            t["lj_force_sharded_plain"] = cuda_ms(
+                lambda: [plain(k, False) for k in range(D)], 2)
+            t["lj_force_sharded_bound"] = bound(
+                D * (12 * M_in + 12 * Ml), n_cut * _LJ_PAIR_OPS)
+        return err, t
+
+    tables = EAMTables.from_funcfl()
+    r1, fp1, _ = eam_cuda.make_eam_rho_cuda(geom, tables)(x, True)
+    f1, e1, w1 = eam_cuda.make_eam_pair_cuda(geom, tables)(x, fp1, True)
+    k_rho = eam_cuda.make_eam_rho_cuda(geom, tables, nb_local=nl,
+                                       decomposed=dec)
+    k_pair = eam_cuda.make_eam_pair_cuda(geom, tables, nb_local=nl,
+                                         decomposed=dec)
+    X = kh.positions(ss.x)[0]              # (D, 3, stored), one group
+    rho_b, fp_b, _ = k_rho(X, True)
+    FP = kh.scalars([fp_b])[0]             # the fp halo
+    fp_pad = list(FP)
+    f_b, p_b, w_b = k_pair(X, FP, True)
+    rhos = [(rho_b[k], fp_b[k]) for k in range(D)]
+    pairs = [(f_b[k],) for k in range(D)]
+    same = {"rho": torch.equal(_gather([rho_b], m, geom), r1),
+            "fp": torch.equal(_gather([fp_b], m, geom), fp1),
+            "f": torch.equal(_gather([f_b], m, geom), f1)}
+    e_rel = abs(float(p_b.sum()) - float(e1)) / abs(float(e1))
+    w_rel = abs(float(w_b.sum()) - float(w1)) / abs(float(w1))
+    p_rho = eam_grid.make_eam_rho_grid(geom, tables, device="cuda",
+                                       nb_local=nl, padded=True)
+    p_pair = eam_grid.make_eam_pair_grid(geom, tables, device="cuda",
+                                         nb_local=nl, padded=True)
+
+    def plain_rho(k, evflag=True):
+        Xp = plain_padded(geom, nl, dec, xk[k])
+        return p_rho(Xp, eam_cuda._interior_valid(geom, nl, Xp), evflag)
+
+    def plain_pair(k, evflag=True):
+        return p_pair(plain_padded(geom, nl, dec, xk[k]),
+                      plain_padded(geom, nl, dec, fp_pad[k], coord=False),
+                      evflag)
+
+    rerr = rscale = ferr = fscale = 0.0
+    for k in range(D):
+        rp = plain_rho(k)[0]
+        fpl = plain_pair(k)[0]
+        rerr = max(rerr, (rp - rhos[k][0]).abs().max().item())
+        rscale = max(rscale, rp.abs().max().item())
+        ferr = max(ferr, (fpl - pairs[k][0]).abs().max().item())
+        fscale = max(fscale, fpl.abs().max().item())
+    err["eam_rho_sharded"], err["eam_force_sharded"] = rerr, ferr
+    ok = (all(same.values()) and rerr / rscale <= RHO_TOL
+          and ferr / fscale <= F_TOL and e_rel < 1e-5 and w_rel < 1e-4)
+    phase("compare", f"eam_sharded {label} mesh={grid} nb={geom.nb} "
+          f"local={nl} C={geom.capacity}: per-atom bit-identical to the "
+          f"one-device kernels {same} P_rel={e_rel:.2e} "
+          f"vir_rel={w_rel:.2e}; vs plain rho rel={rerr / rscale:.3e} "
+          f"max|df|/max|f|={ferr / fscale:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"sharded EAM kernels disagree at {label}")
+    if timing:
+        polys = tables.polys
+        n_cut, n_body = count_pairs(geom, x, tables.cut, polys.split)
+        M_in = xk[0].shape[-1]
+        t["eam_rho_sharded"] = cuda_ms(lambda: k_rho(X, False), 50)
+        t["eam_rho_sharded_plain"] = cuda_ms(
+            lambda: [plain_rho(k, False) for k in range(D)], 1)
+        t["eam_rho_sharded_bound"] = bound(
+            D * 4 * (3 * M_in + 2 * Ml),
+            eam_pair_ops(polys, ("R",), n_cut, n_body) + 11 * Ml * D)
+        t["eam_force_sharded"] = cuda_ms(lambda: k_pair(X, FP, False), 50)
+        t["eam_force_sharded_plain"] = cuda_ms(
+            lambda: [plain_pair(k, False) for k in range(D)], 1)
+        t["eam_force_sharded_bound"] = bound(
+            D * 4 * (3 * M_in + M_in + 3 * Ml),
+            eam_pair_ops(polys, ("G1", "G2"), n_cut, n_body))
+    return err, t
+
+
+def compare_sharded_rebin(deck, label, grid, teleport=False, timing=False):
+    """The migration with the sharded rebin kernels placing the residents
+    against the plain exchange_rebin (place_residents), bit for bit: x, v,
+    typ, valid and the [movement, capacity, buffer] overflow of every
+    domain, on the split lattice with its atoms kicked (many cross the
+    domains); teleport: one atom moved two cells inside its domain
+    (movement overflow 1)."""
+    import torch
+
+    from minimd_torch.parallel import comm
+
+    inp, geom, x, st, m, router, nl, ss = sharded_lattice(deck, grid)
+    rng = torch.Generator(device="cuda").manual_seed(5)
+    xs = [t + (torch.rand(t.shape, generator=rng, device="cuda") - 0.5)
+          * 0.8 * (t[:, :1] < 5e5) for t in ss.x]
+    if teleport:
+        # an atom of cell (3, 0, 0) of domain 0 moved to cell (5, 0, 0)
+        C = geom.capacity
+        v0 = 3 * C + int(ss.valid[0][0, 3 * C:4 * C].nonzero()[0, 0])
+        xs[0][0, 0, v0] += 2.0 * geom.binsize[0]
+    res = {}
+    for form in ("plain", "kernel", "graph"):
+        ex = comm.make_exchange_rebin(geom, m, router, nl, torch.float32,
+                                      kernel=form != "plain",
+                                      graph=form == "graph")
+        for _ in range(2 if form == "graph" else 1):  # capture, replay
+            res[form] = ex([t.clone() for t in xs], ss.v, ss.typ, ss.valid)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for form in ("kernel", "graph")
+               for i in range(5)
+               for a, b in zip(res[form][i], res["plain"][i]))
+    ovf = router.domain_sum(res["graph"][4]).tolist()
+    kept = int(sum(int(t.sum()) for t in res["graph"][3]))
+    phase("compare", f"rebin_sharded {label} mesh={grid} nb={geom.nb} "
+          f"local={nl} C={geom.capacity}: kernels and their CUDA graph "
+          f"bit-identical to the plain exchange_rebin={same} overflow "
+          f"[move, cap, buf]={ovf} atoms={kept}/{int(st.valid.sum())}")
+    if not (same and ovf == [int(teleport), 0, 0]):
+        raise AssertionError(f"sharded rebin differs from the plain "
+                             f"exchange_rebin (or the overflow is wrong) "
+                             f"at {label}")
+    t = {}
+    if timing:
+        from minimd_torch.ops.rebin_cuda import make_rebin_cuda
+
+        Ml = ss.x[0].shape[-1]
+        placer = make_rebin_cuda(geom, "cuda", nb_local=nl,
+                                 decomposed=m.decomposed)
+        from minimd_torch.parallel.comm import (dead_pads, domain_sentinels,
+                                                place_residents)
+        xr = xs[0][0].contiguous()
+        vr, tr = ss.v[0][0], ss.typ[0][0]
+        o = tuple(0 for _ in range(3))
+        t["rebin_sharded"] = queued_ms(lambda: placer(xr, vr, tr, o, 0), 50)
+        sent = domain_sentinels(Ml, 0, torch.float32, "cuda")
+        pads = dead_pads(m.decomposed)
+        t["rebin_sharded_plain"] = cuda_ms(lambda: place_residents(
+            xr, vr, tr, xr[0] < 5e5, geom, nl, o, m.decomposed, pads,
+            sent), 3)
+        t["rebin_sharded_bound"] = bound(56 * Ml, 0)
+        # the whole migration, graphed as a run takes it
+        t["migration_ms"] = cuda_ms(lambda: ex(
+            [a.clone() for a in xs], ss.v, ss.typ, ss.valid), 5)
+        t["migration_host_us"] = host_us(lambda: ex(
+            [a.clone() for a in xs], ss.v, ss.typ, ss.valid), 5)
+    return t
+
+
+def sharded_gate(deck, grid=(2, 2, 2), steps=10000):
+    """ShardedSimulation on a mesh of one card's domains, 4k/steps f32,
+    against tests/golden/4k.<deck> with the reference's criterion, the
+    sharded kernels' launches counted over exactly that run."""
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+    from minimd_torch.validate import compare_traces, parse_golden
+
+    golden4k = parse_golden(REPO / f"tests/golden/4k.{deck}")
+    inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
+    inp.nx = inp.ny = inp.nz = 10
+    t0 = time.time()
+    sim = ShardedSimulation.from_input(inp, devices=["cuda"] * 8)
+    reset_counters()
+    trace = sim.run(steps)
+    launches = {k: n for k, n in counters().items() if n}
+    rows = sim.thermo_trace(trace)
+    res = compare_traces(rows, golden4k.rows, natoms=4000, system=deck,
+                         precision=4)
+    need = (("lj_force_sharded",) if deck == "lj" else
+            ("eam_rho_sharded", "eam_force_sharded")) + ("rebin_sharded",)
+    kept = int(sim.state.valid.sum())
+    phase(f"gate-4k-{deck}-sharded", f"mesh={sim.mesh.shape} "
+          f"nb={sim.geom.nb} C={sim.geom.capacity} {steps} steps in "
+          f"{time.time() - t0:.1f}s: {res}; launches={launches} "
+          f"atoms={kept} last={rows[-1]}")
+    if not (res.passed and all(launches.get(k, 0) > 0 for k in need)
+            and kept == 4000 and len(rows) == steps // 100 + 1):
+        raise AssertionError(f"4k/{steps} f32 sharded {deck} gate failed")
+
+
+def sharded_main_path(deck, s, steps, devices):
+    """ShardedSimulation.from_input on the deck at size s over `devices`,
+    counters set to 0 after construction, run(steps): (sim, rows,
+    nonzero launches, seconds)."""
+    import numpy as np
+
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+
+    inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
+    inp.nx = inp.ny = inp.nz = s
+    t0 = time.time()
+    sim = ShardedSimulation.from_input(inp, devices=devices)
+    reset_counters()
+    trace = sim.run(steps)
+    launches = {k: n for k, n in counters().items() if n}
+    rows = sim.thermo_trace(trace)
+    kept = int(sim.state.valid.sum())
+    phase(f"sharded-{deck}-{s}", f"natoms={sim.natoms} mesh={sim.mesh.shape}"
+          f" nb={sim.geom.nb} C={sim.geom.capacity} {steps} steps in "
+          f"{time.time() - t0:.1f}s (setup included) launches={launches} "
+          f"atoms={kept} rows={rows}")
+    if not (bool(np.isfinite(trace).all()) and kept == sim.natoms):
+        raise AssertionError(f"sharded {deck} s={s}: the run failed")
+    return sim, rows, launches
+
+
+def sharded_rates(deck, s, steps):
+    """Matom-steps/s of Simulation and of ShardedSimulation on one domain
+    (the sharded_1chip_ratio of bench.py:117-135) in turns a, b, b, a,
+    then of a (2,2,2) mesh on the one card, and its host time per step:
+    {name: [rates]}, host_us."""
+    import torch
+
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+    from minimd_torch.sim import Simulation
+
+    inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
+    inp.nx = inp.ny = inp.nz = s
+    sims = {"single": Simulation.from_input(inp, device="cuda"),
+            "sharded1": ShardedSimulation.from_input(inp,
+                                                     devices=["cuda"])}
+    got = {name: [] for name in sims}
+    for name in ("single", "sharded1", "sharded1", "single"):
+        _, ms, rate = timed_run(sims[name], steps)
+        got[name].append(rate)
+        phase(f"rate-sharded-{deck}-{s}", f"{name}: {steps} steps "
+              f"{ms:.1f}ms = {rate:.3f} Matom-steps/s")
+    del sims
+    torch.cuda.empty_cache()
+    sh1, one = got["sharded1"], got["single"]
+    sim8 = ShardedSimulation.from_input(inp, devices=["cuda"] * 8)
+    _, ms, rate = timed_run(sim8, steps)
+    got["sharded8"] = [rate]
+    # the host's time to issue the steps: the run without waiting for the
+    # card at the end (its one sync is the trace's)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, ovf, trace = sim8.run_fn(sim8.state_.clone(), steps, 0)
+    host_us = (time.perf_counter() - t0) / steps * 1e6
+    torch.cuda.synchronize()
+    phase(f"rate-sharded-{deck}-{s}", f"mesh (2,2,2) on one card "
+          f"nb={sim8.geom.nb} local={sim8.nb_local}: {steps} steps "
+          f"{ms:.1f}ms = {rate:.3f} Matom-steps/s; host {host_us:.1f} "
+          f"us/step; 1-domain/Simulation, adjacent turns "
+          f"{[round(a / b, 4) for a, b in zip(sh1, one)]}")
+    del sim8
+    torch.cuda.empty_cache()
+    return got, host_us
+
+
+def sharded_phases():
+    """Every sharded phase; returns (kernel entries, rates, host us per
+    step)."""
+    t0 = time.time()
+    max_err = {}
+    times = {}
+    for deck in ("lj", "eam"):
+        for label, grid in SHARD_SPLITS.items():
+            e, t = compare_sharded(deck, f"{deck}-131k-{label}", grid,
+                                   timing=label == "222")
+            for k, v in e.items():
+                max_err[k] = max(max_err.get(k, 0.0), v)
+            times.update(t)
+            times.update(compare_sharded_rebin(
+                deck, f"{deck}-131k-{label}", grid, timing=label == "222"
+                and deck == "lj"))
+    compare_sharded_rebin("lj", "lj-131k-222-teleporter", (2, 2, 2),
+                          teleport=True)
+    max_err["rebin_sharded"] = 0.0
+    phase("kernel-time", "sharded 131k (2,2,2), the pair kernels' 8 domains "
+          "in one launch, the rebin's one domain: " + " ".join(
+        f"{k}={v:.1f}" if k.endswith("_us") else
+        f"{k}={v:.4f}ms" if isinstance(v, float) else
+        f"{k}={v[0]:.5f}ms({v[1]})" for k, v in times.items()))
+    for deck in ("lj", "eam"):
+        sharded_gate(deck)
+    launches = {}
+    for deck in ("lj", "eam"):
+        _, _, got = sharded_main_path(deck, 32, 100, ["cuda"] * 8)
+        launches.update(got)
+    rates, host = {}, {}
+    for deck in ("lj", "eam"):
+        for s, steps in ((32, 100), (60, 50)):
+            got, h = sharded_rates(deck, s, steps)
+            for name, r in got.items():
+                rates[f"{deck}_{name}_{'131k' if s == 32 else '864k'}"] = r
+            host[f"{deck}_{'131k' if s == 32 else '864k'}"] = h
+
+    def entry(name, source, replaces, **extra):
+        b = times[f"{name}_bound"]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, **extra,
+                "launches": launches.get(name, 0),
+                "max_abs_err": max_err[name], "ms": times[name],
+                "plain_ms": times[f"{name}_plain"], "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None,
+                "shape": ("131k (2,2,2), noev: the 8 domains in one launch"
+                          if name != "rebin_sharded" else
+                          "131k (2,2,2): one domain's residents")}
+
+    kernels = [
+        entry("lj_force_sharded", "minimd_torch/csrc/lj_force.cu",
+              "minimd_tpu/ops/lj_pallas.py:69",
+              also_source="minimd_torch/csrc/cellgrid.cuh"),
+        entry("eam_rho_sharded", "minimd_torch/csrc/eam_force.cu",
+              "minimd_tpu/ops/eam_pallas.py:457"),
+        entry("eam_force_sharded", "minimd_torch/csrc/eam_force.cu",
+              "minimd_tpu/ops/eam_pallas.py:478"),
+        entry("rebin_sharded", "minimd_torch/csrc/rebin.cu",
+              "minimd_tpu/ops/rebin_pallas.py:49",
+              launches_per_call=["rebin_bin", "rebin_gather"],
+              migration_ms=times["migration_ms"]),
+    ]
+    sharded_lattice.cache_clear()
+    phase("sharded-wall", f"phase 12 took {time.time() - t0:.1f}s")
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"the sharded main paths launched no {missing}")
+    return kernels, rates, host
+
+
+
 def main():
     import numpy as np
     import torch
@@ -1582,6 +2042,9 @@ def main():
              "minimd_torch.ops.eam_grid")):
         cli_envelope_phase(label, deck, argv, want, module)
 
+    # 12. the decomposed run (minimd_torch/parallel) on this card's domains
+    sharded_kernels, sharded_rates_, sharded_host = sharded_phases()
+
     def entry(name, source, replaces, t, key, **extra):
         k131, k864 = t["131k"], t["864k"]
         b131, b864 = k131[f"{key}_bound"], k864[f"{key}_bound"]
@@ -1622,6 +2085,7 @@ def main():
         entry("eam_force_rows", "minimd_torch/csrc/eam_rows.cu",
               "minimd_tpu/ops/eam_pallas.py:209", eam_times, "force_rows"),
         *micro_rows,
+        *sharded_kernels,
     ]
     phase("wall", f"chip_smoke.py {time.time() - wall0:.1f}s in all")
     print(json.dumps({"kernels": kernels, "matom_steps_per_s": rates,
@@ -1630,7 +2094,9 @@ def main():
                                         for k, t in times.items()},
                       "eam_candidates": {k: t["candidates"]
                                          for k, t in eam_times.items()},
-                      "idle_split": idle}))
+                      "idle_split": idle,
+                      "sharded_matom_steps_per_s": sharded_rates_,
+                      "sharded_host_us_per_step": sharded_host}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

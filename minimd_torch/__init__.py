@@ -8,6 +8,10 @@ Public API:
     trace = sim.run()                    # (ntimes, 3) T/U/P per step
     rows = sim.thermo_trace(trace)       # thermo-cadence rows incl. step 0
 
+    from minimd_torch.parallel import ShardedSimulation   # decomposed run
+    ssim = ShardedSimulation.from_input(builtin_deck("lj"),
+                                        devices=["cuda:0"] * 8)
+
 The package imports neither jax nor the JAX package minimd_tpu: it keeps
 its own copies of the host modules it needs (config, units, create, rng,
 lammps_data, eam_file, validate, timer).

@@ -28,20 +28,22 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # x, f, eng, vir, nbx, nby, nbz, C, prdx, prdy, prdz, cutsq, eps, sig6,
-    # valid_below, evflag, stream
+    # valid_below, evflag, halo, ndom, stream
     "lj_force_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                        ctypes.c_double, _F, _F, _I, _P],
-    # x, v, typ, x_out, v_out, t_out, scratch, overflow, nbx, nby, nbz, C,
-    # prd (3), offset (3), 1/binsize (3), valid_below, stream
-    "rebin_launch": [_P] * 8 + [_I] * 4 + [_F] * 10 + [_P],
+                        ctypes.c_double, _F, _F, _I, _I, _I, _P],
+    # x, v, typ, x_out, v_out, t_out, scratch, overflow, counts, nbx, nby,
+    # nbz, C, prd (3), offset (3), 1/binsize (3), valid_below, global nb
+    # (3), origin (3), dead, split, slot0, stream
+    "rebin_launch": [_P] * 9 + [_I] * 4 + [_F] * 10 + [_I] * 8 + [
+        ctypes.c_longlong, _P],
     # x, rho, fp, embed, frho, nrho, rdrho, params, nbody, nbx, nby, nbz, C,
-    # prdx, prdy, prdz, valid_below, evflag, stream
+    # prdx, prdy, prdz, valid_below, evflag, halo, ndom, stream
     "eam_rho_launch": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _I, _P],
+                       _F, _F, _F, _F, _I, _I, _I, _P],
     # x, fp, f, eng, vir, params, nbody, nbx, nby, nbz, C, prdx, prdy, prdz,
-    # valid_below, evflag, stream
+    # valid_below, evflag, halo, ndom, stream
     "eam_force_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _I, _P],
+                         _F, _F, _F, _F, _I, _I, _I, _P],
     # x, w, x_next, eng, vir, vsq, nbx, nby, nbz, C, prdx, prdy, prdz,
     # cutsq, eps, sig6, dt, dtf, valid_below, evflag, stream
     "lj_step_launch": [_P] * 6 + [_I] * 4 + [_F] * 4 + [
@@ -127,6 +129,17 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def on_device(device, switch: bool):
+    """The context that makes `device` current for a launch through this
+    library, when `switch` (a launch of a decomposed run, whose domains
+    may sit on several cards); else none."""
+    import contextlib
+
+    import torch
+
+    return torch.cuda.device(device) if switch else contextlib.nullcontext()
 
 
 def check(rc: int, name: str) -> None:

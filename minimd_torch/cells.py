@@ -2,8 +2,8 @@
 
 The host half (`CellGeometry` .. `_coords_to_cell_np`) is a numpy copy of
 `minimd_tpu.cells` (which cannot be imported here because that module
-imports jax), the same arithmetic without the mesh-only `multiple_of`
-option. The layout it defines is the same:
+imports jax), the same arithmetic, with `multiple_of` free of the JAX
+version's snap-up. The layout it defines is the same:
 
 - Atoms live in a fixed-capacity, cell-major padded layout: slot
   `cell*C + r` holds the r-th atom of `cell`; empty slots hold far-away
@@ -97,7 +97,7 @@ def choose_grid(prd, cutneigh: float, nbins=None) -> tuple[int, int, int]:
 
 
 def autotune_grid(prd, cutneigh: float, positions: np.ndarray,
-                  solid: bool = False):
+                  solid: bool = False, multiple_of=None):
     """Pick the cell grid minimizing the dense-kernel cost model
     ncells * nstencil * C * LANE over a few candidate resolutions, with the
     actual initial occupancy (see minimd_tpu.cells.autotune_grid).
@@ -105,14 +105,22 @@ def autotune_grid(prd, cutneigh: float, positions: np.ndarray,
     The cost keeps the JAX package's lane term (3C rounded up to 128, a
     TPU layout cost) so that both packages pick the same grid; whether
     the H100 kernels want another cost is an open decision in ROADMAP.
-    The JAX version's `multiple_of` (mesh divisibility) waits for the
-    multi-device port, which has its only callers."""
+
+    multiple_of: (mx, my, mz), the mesh of a spatial decomposition; each
+    candidate snaps down to a multiple per axis (binsize only grows). A
+    candidate with fewer cells than the mesh on an axis is skipped: the
+    JAX version raises it to the mesh there, which gives binsize <
+    cutneigh. Raises ValueError when no candidate is left."""
     prd = np.asarray(prd, dtype=np.float64)
     base = np.maximum(1, np.floor(prd / cutneigh).astype(int))
     best, best_cost = None, np.inf
     tried = set()
     for frac in (1.0, 0.95, 0.9, 0.85, 0.8, 0.75, 0.7, 0.65, 0.6):
         nb = tuple(int(max(1, np.floor(b * frac))) for b in base)
+        if multiple_of is not None:
+            nb = snap_to_mesh(nb, multiple_of)
+            if nb is None:
+                continue
         if nb in tried:
             continue
         tried.add(nb)
@@ -128,7 +136,22 @@ def autotune_grid(prd, cutneigh: float, positions: np.ndarray,
         cost = ncells * len(stencil) * cap * lane / 3.0
         if cost < best_cost:
             best, best_cost = nb, cost
+    if best is None:
+        axis, b = next((a, b) for a, b, m in zip("xyz", base, multiple_of)
+                       if b < m)
+        raise ValueError(
+            f"no cell grid with binsize >= cutneigh divides the mesh "
+            f"{tuple(multiple_of)}: axis {axis} holds {b} cells; use fewer "
+            "domains on that axis")
     return best
+
+
+def snap_to_mesh(nb, mesh_grid):
+    """nb snapped down to a multiple of the mesh (px, py, pz) on each
+    axis, or None where an axis has fewer cells than the mesh."""
+    if any(b < m for b, m in zip(nb, mesh_grid)):
+        return None
+    return tuple(int((b // m) * m) for b, m in zip(nb, mesh_grid))
 
 
 def pick_capacity(counts: np.ndarray, mean_density_per_cell: float,
@@ -393,23 +416,30 @@ PULL_OFFSETS = [(dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
                 for dx in (-1, 0, 1)]
 
 
-def rebin_pull(cid, chans, geom: CellGeometry):
+def rebin_pull(cid, chans, geom: CellGeometry, nb_local=None,
+               pad_exchanges=None):
     """One-hot pull placement core, the plain version of the rebin kernel.
 
     cid: (M,) int32 per-slot cell id (-1 marks empty slots); chans: list of
     (M,) channels of any dtype to relocate. Each destination cell takes,
-    over its 27-cell periodic neighborhood in PULL_OFFSETS order and slots
+    over its 27-cell neighborhood in PULL_OFFSETS order and slots
     ascending, the atoms whose new cell id equals it; the running rank
-    carries across neighbor cells. Returns (outs, counts, cap_overflow):
+    carries across neighbor cells. The neighborhood wraps periodically,
+    or on the axes of `pad_exchanges` (pairgrid hooks, as the decomposed
+    run's migration passes them for the local grid of nb_local cells)
+    takes the hooks' cells: dead ones there, since atoms cross domains
+    through the migration buffers (parallel/comm.py).
+    Returns (outs, counts, cap_overflow):
     one (ncells, C) tensor per channel (zero on unfilled slots), per-cell
     occupancies, and the number of atoms that did not fit their cell."""
     from .ops.pairgrid import pad_grid_int, stencil_slice
 
-    nb = geom.nb
-    C, ncells = geom.capacity, geom.ncells
+    nb = tuple(nb_local) if nb_local is not None else geom.nb
+    C = geom.capacity
+    ncells = nb[0] * nb[1] * nb[2]
     dev = cid.device
-    cid_pad = pad_grid_int(cid, geom, 1)
-    chan_pad = [pad_grid_int(c, geom, 1) for c in chans]
+    cid_pad = pad_grid_int(cid, geom, 1, nb, pad_exchanges)
+    chan_pad = [pad_grid_int(c, geom, 1, nb, pad_exchanges) for c in chans]
     cell_ids = torch.arange(ncells, dtype=cid.dtype, device=dev)[:, None]
     outs = [torch.zeros(ncells * C, dtype=c.dtype, device=dev) for c in chans]
     base = torch.zeros((ncells, 1), dtype=torch.int64, device=dev)

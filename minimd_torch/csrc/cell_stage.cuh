@@ -75,15 +75,17 @@ struct CellWalk {
   float sh[3];     // and its image shift
 };
 
-// Every lane of the block's one warp calls it.
+// Every lane of the block's one warp calls it. SHARDED: as neighbor_cell.
+template <bool SHARDED = false>
 __device__ __forceinline__ CellWalk cell_walk(const CellGrid& g, int cell,
                                               float valid_below) {
   CellWalk cw;
   const int lane = threadIdx.x;
   float b[6] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
                 -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+  const long long own = SHARDED ? cell_base(g, cell) : 0;
   for (int t = lane; t < g.C; t += 32) {
-    const long long s = (long long)cell * g.C + t;
+    const long long s = SHARDED ? own + t : (long long)cell * g.C + t;
     const float p[3] = {g.x[s], g.x[g.M + s], g.x[2 * g.M + s]};
     if (p[0] < valid_below) {
 #pragma unroll
@@ -106,7 +108,8 @@ __device__ __forceinline__ CellWalk cell_walk(const CellGrid& g, int cell,
     cw.lo[d] = b[d];
     cw.hi[d] = b[d + 3];
   }
-  const NeighborCell n = neighbor_cell(g, cell, lane < 27 ? lane : 13);
+  const NeighborCell n =
+      neighbor_cell<SHARDED>(g, cell, lane < 27 ? lane : 13);
   cw.base = n.base;
   cw.sh[0] = n.shx;
   cw.sh[1] = n.shy;

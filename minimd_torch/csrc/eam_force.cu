@@ -126,8 +126,8 @@ __global__ void eam_rho_kernel(const __grid_constant__ CellGrid g,
                                const float* __restrict__ frho, int nrho,
                                float rdrho, float valid_below) {
   extern __shared__ float4 stage[];  // eam_pass_bytes(C, false)
-  density_pass<EV>(g, p.cutsq, valid_below, stage, rho, fp, embed_part,
-                   frho, nrho, rdrho,
+  density_pass<EV>(g, blockIdx.x, p.cutsq, valid_below, stage, rho, fp,
+                   embed_part, frho, nrho, rdrho,
                    [&](float r) { return pair_fn<NB, kR>(p, r); });
 }
 
@@ -141,7 +141,7 @@ __global__ void eam_force_kernel(const __grid_constant__ CellGrid g,
                                  float valid_below) {
   extern __shared__ float4 stage[];  // eam_pass_bytes(C, true)
   force_pass<EV>(
-      g, p.cutsq, valid_below, stage, fp, f, eng_part, vir_part,
+      g, blockIdx.x, p.cutsq, valid_below, stage, fp, f, eng_part, vir_part,
       [&](float fsum, float r) {
         // psi' as the first design's SASS rounds it: its G1 product and
         // G2 sum lie in two branches, so nvcc did not fuse them
@@ -151,30 +151,77 @@ __global__ void eam_force_kernel(const __grid_constant__ CellGrid g,
       [&](float r) { return pair_fn<NB, kP>(p, r); });
 }
 
-template <int NB>
-cudaError_t launch_rho(int ncells, size_t smem, cudaStream_t s,
+// The sharded forms: the domains of a decomposed run on one device, block
+// b the cell b % ncells of domain b / ncells (cellgrid.cuh domain_cell),
+// positions and fp stored with the halo axes padded.
+template <int NB, bool EV>
+__global__ void eam_rho_sharded_kernel(const __grid_constant__ CellGrid g,
+                                       const __grid_constant__ PairParams p,
+                                       float* __restrict__ rho,
+                                       float* __restrict__ fp,
+                                       float* __restrict__ embed_part,
+                                       const float* __restrict__ frho,
+                                       int nrho, float rdrho,
+                                       float valid_below) {
+  extern __shared__ float4 stage[];  // eam_pass_bytes(C, false)
+  const DomainCell dc = domain_cell(g);
+  const long long Mo = interior_slots(dc.g);
+  density_pass<EV, true>(dc.g, dc.cell, p.cutsq, valid_below, stage,
+                         rho + dc.dom * Mo, fp + dc.dom * Mo, embed_part,
+                         frho, nrho, rdrho,
+                         [&](float r) { return pair_fn<NB, kR>(p, r); });
+}
+
+template <int NB, bool EV>
+__global__ void eam_force_sharded_kernel(const __grid_constant__ CellGrid g,
+                                         const __grid_constant__ PairParams p,
+                                         const float* __restrict__ fp,
+                                         float* __restrict__ f,
+                                         float* __restrict__ eng_part,
+                                         float* __restrict__ vir_part,
+                                         float valid_below) {
+  extern __shared__ float4 stage[];  // eam_pass_bytes(C, true)
+  const DomainCell dc = domain_cell(g);
+  force_pass<EV, true>(
+      dc.g, dc.cell, p.cutsq, valid_below, stage, fp + dc.dom * dc.g.M,
+      f + dc.dom * 3 * interior_slots(dc.g), eng_part, vir_part,
+      [&](float fsum, float r) {   // as eam_force_kernel's
+        return __fadd_rn(__fmul_rn(fsum, pair_fn<NB, kG1>(p, r)),
+                         pair_fn<NB, kG2>(p, r));
+      },
+      [&](float r) { return pair_fn<NB, kP>(p, r); });
+}
+
+template <int NB, bool SHARDED>
+cudaError_t launch_rho(int blocks, size_t smem, cudaStream_t s,
                        const CellGrid& g, const PairParams& p, float* rho,
                        float* fp, float* embed, const float* frho, int nrho,
                        float rdrho, float valid_below, int evflag) {
   const auto kernel =
-      evflag ? eam_rho_kernel<NB, true> : eam_rho_kernel<NB, false>;
+      SHARDED ? (evflag ? eam_rho_sharded_kernel<NB, true>
+                        : eam_rho_sharded_kernel<NB, false>)
+              : (evflag ? eam_rho_kernel<NB, true>
+                        : eam_rho_kernel<NB, false>);
   const cudaError_t err = allow_stage(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<ncells, 32, smem, s>>>(g, p, rho, fp, evflag ? embed : nullptr,
+  kernel<<<blocks, 32, smem, s>>>(g, p, rho, fp, evflag ? embed : nullptr,
                                   frho, nrho, rdrho, valid_below);
   return cudaGetLastError();
 }
 
-template <int NB>
-cudaError_t launch_force(int ncells, size_t smem, cudaStream_t s,
+template <int NB, bool SHARDED>
+cudaError_t launch_force(int blocks, size_t smem, cudaStream_t s,
                          const CellGrid& g, const PairParams& p,
                          const float* fp, float* f, float* eng, float* vir,
                          float valid_below, int evflag) {
   const auto kernel =
-      evflag ? eam_force_kernel<NB, true> : eam_force_kernel<NB, false>;
+      SHARDED ? (evflag ? eam_force_sharded_kernel<NB, true>
+                        : eam_force_sharded_kernel<NB, false>)
+              : (evflag ? eam_force_kernel<NB, true>
+                        : eam_force_kernel<NB, false>);
   const cudaError_t err = allow_stage(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<ncells, 32, smem, s>>>(g, p, fp, f, evflag ? eng : nullptr,
+  kernel<<<blocks, 32, smem, s>>>(g, p, fp, f, evflag ? eng : nullptr,
                                   evflag ? vir : nullptr, valid_below);
   return cudaGetLastError();
 }
@@ -188,60 +235,67 @@ cudaError_t launch_force(int ncells, size_t smem, cudaStream_t s,
 // shared-memory opt-in (above 48 KB) or cudaGetLastError(); a slot holds
 // an atom iff its x < valid_below.
 
-// x: (3, M) float32 positions; rho, fp: (M,) float32 out; embed: (ncells,)
-// float32 partials of F(rho) over valid slots (ignored unless evflag);
-// frho: (7, nrho+1) float32 spline columns on the device; params: host
-// pointer to a PairParams.
+// x: (ndom, 3, M) float32 positions, stored with the halo axes padded
+// (M = stored_slots; halo: cellgrid.cuh's bits; 0 and ndom 1 on one
+// device); rho, fp: (ndom, ncells*C) float32 out for the interior cells;
+// embed: (ndom * ncells,) float32 partials of F(rho) over valid slots
+// (ignored unless evflag); frho: (7, nrho+1) float32 spline columns on the
+// device; params: host pointer to a PairParams.
 extern "C" int eam_rho_launch(const void* x, void* rho, void* fp, void* embed,
                               const void* frho, int nrho, float rdrho,
                               const void* params, int nbody, int nbx, int nby,
                               int nbz, int C, float prdx, float prdy,
                               float prdz, float valid_below, int evflag,
-                              void* stream) {
-  const int ncells = nbx * nby * nbz;
-  const CellGrid g{(const float*)x, (long long)ncells * C, nbx, nby, nbz, C,
-                   prdx, prdy, prdz};
+                              int halo, int ndom, void* stream) {
+  const int ncells = nbx * nby * nbz * ndom;
+  const CellGrid g{(const float*)x, stored_slots(nbx, nby, nbz, C, halo),
+                   nbx, nby, nbz, C, prdx, prdy, prdz, halo};
   const PairParams p = *(const PairParams*)params;
   const size_t smem = eam_pass_bytes(C, false);
   cudaStream_t s = (cudaStream_t)stream;
+  const bool sharded = halo || ndom > 1;
   if (nbody == 21) {
-    return (int)launch_rho<21>(ncells, smem, s, g, p, (float*)rho,
-                               (float*)fp, (float*)embed, (const float*)frho,
-                               nrho, rdrho, valid_below, evflag);
+    return (int)(sharded ? launch_rho<21, true> : launch_rho<21, false>)(
+        ncells, smem, s, g, p, (float*)rho, (float*)fp, (float*)embed,
+        (const float*)frho, nrho, rdrho, valid_below, evflag);
   }
   if (nbody == kMaxBody) {
-    return (int)launch_rho<kMaxBody>(ncells, smem, s, g, p, (float*)rho,
-                                     (float*)fp, (float*)embed,
-                                     (const float*)frho, nrho, rdrho,
-                                     valid_below, evflag);
+    return (int)(sharded ? launch_rho<kMaxBody, true>
+                         : launch_rho<kMaxBody, false>)(
+        ncells, smem, s, g, p, (float*)rho, (float*)fp, (float*)embed,
+        (const float*)frho, nrho, rdrho, valid_below, evflag);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// x: (3, M) float32 positions; fp: (M,) float32 from eam_rho_launch;
-// f: (3, M) float32 out; eng/vir: (ncells,) float32 partials of sum P and
-// of -1/2 sum rsq*psi' (ignored unless evflag).
+// x: (ndom, 3, M) float32 positions and fp: (ndom, M) float32, both
+// stored with the halo axes padded (fp: eam_rho_launch's, through the fp
+// halo on a decomposed run); f: (ndom, 3, ncells*C) float32 out; eng/vir:
+// (ndom * ncells,) float32 partials of sum P and of -1/2 sum rsq*psi'
+// (ignored unless evflag).
 extern "C" int eam_force_launch(const void* x, const void* fp, void* f,
                                 void* eng, void* vir, const void* params,
                                 int nbody, int nbx, int nby, int nbz, int C,
                                 float prdx, float prdy, float prdz,
-                                float valid_below, int evflag, void* stream) {
-  const int ncells = nbx * nby * nbz;
-  const CellGrid g{(const float*)x, (long long)ncells * C, nbx, nby, nbz, C,
-                   prdx, prdy, prdz};
+                                float valid_below, int evflag, int halo,
+                                int ndom, void* stream) {
+  const int ncells = nbx * nby * nbz * ndom;
+  const CellGrid g{(const float*)x, stored_slots(nbx, nby, nbz, C, halo),
+                   nbx, nby, nbz, C, prdx, prdy, prdz, halo};
   const PairParams p = *(const PairParams*)params;
   const size_t smem = eam_pass_bytes(C, true);
   cudaStream_t s = (cudaStream_t)stream;
+  const bool sharded = halo || ndom > 1;
   if (nbody == 21) {
-    return (int)launch_force<21>(ncells, smem, s, g, p, (const float*)fp,
-                                 (float*)f, (float*)eng, (float*)vir,
-                                 valid_below, evflag);
+    return (int)(sharded ? launch_force<21, true> : launch_force<21, false>)(
+        ncells, smem, s, g, p, (const float*)fp, (float*)f, (float*)eng,
+        (float*)vir, valid_below, evflag);
   }
   if (nbody == kMaxBody) {
-    return (int)launch_force<kMaxBody>(ncells, smem, s, g, p,
-                                       (const float*)fp, (float*)f,
-                                       (float*)eng, (float*)vir, valid_below,
-                                       evflag);
+    return (int)(sharded ? launch_force<kMaxBody, true>
+                         : launch_force<kMaxBody, false>)(
+        ncells, smem, s, g, p, (const float*)fp, (float*)f, (float*)eng,
+        (float*)vir, valid_below, evflag);
   }
   return (int)cudaErrorInvalidValue;
 }

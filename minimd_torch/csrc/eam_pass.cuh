@@ -13,6 +13,8 @@
 //     order) in shared memory;
 //  4. the lanes run the pair functions over their lists in lockstep, a
 //     lane whose list is shorter idle: ~42 warp-steps per cell.
+// A sharded launch (SHARDED) takes the domains of one device, block b the
+// cell b % ncells of domain b / ncells (cellgrid.cuh domain_cell).
 // A 32-slot group with no atom skips 2-4 and writes rho = 0, fp = F'(0),
 // f = 0. The lists hold every in-cut pair in the order of a walk over all
 // 27*C slots, so each lane adds the same terms in the same order as that
@@ -36,12 +38,13 @@
 #include "cell_stage.cuh"
 
 // The embedding of one 32-slot group of a cell: every lane calls it, and
-// rho and fp are written for an own slot. With EV it returns, in lane 0,
-// the group's sum (warp_sum) of F(rho) over the slots that hold an atom.
-// acc: the slot's density sum. frho: (7, nrho+1) float32 spline columns.
+// rho and fp are written for an own slot, at its interior index oi. With
+// EV it returns, in lane 0, the group's sum (warp_sum) of F(rho) over the
+// slots that hold an atom. acc: the slot's density sum. frho: (7,
+// nrho+1) float32 spline columns.
 template <bool EV>
 __device__ __forceinline__ float density_group(
-    float acc, bool own, long long si, float xi, float* __restrict__ rho,
+    float acc, bool own, long long oi, float xi, float* __restrict__ rho,
     float* __restrict__ fp, const float* __restrict__ frho, int nrho,
     float rdrho, float valid_below) {
   float emb = 0.f;
@@ -50,8 +53,8 @@ __device__ __forceinline__ float density_group(
     const float pr = __fadd_rn(__fmul_rn(acc, rdrho), 1.0f);
     const int m = min(max((int)pr, 1), nrho - 1);
     const float pf = fminf(__fsub_rn(pr, (float)m), 1.0f);
-    rho[si] = acc;
-    fp[si] = __fadd_rn(
+    rho[oi] = acc;
+    fp[oi] = __fadd_rn(
         __fmul_rn(__fadd_rn(__fmul_rn(frho[m], pf), frho[stride + m]), pf),
         frho[2 * stride + m]);
     if (EV && xi < valid_below) {
@@ -75,29 +78,33 @@ inline size_t eam_pass_bytes(int C, bool force) {
   return pair_list_bytes(kStageCells * C, force);
 }
 
-// The density pass of the block's cell: rho_i = sum R(r_ij) over the
-// lane's list, added in list order, then the embedding; with EV the
-// cell's partial of F(rho) into embed_part. r_fn(r) -> R(r). stage:
+// The density pass of `cell` of grid g (the block's): rho_i = sum R(r_ij)
+// over the lane's list, added in list order, then the embedding, rho and
+// fp at the cell's interior slots;
+// with EV the cell's partial of F(rho) into embed_part[blockIdx.x].
+// r_fn(r) -> R(r). stage:
 // eam_pass_bytes(C, false) of dynamic shared memory.
-template <bool EV, class RFn>
+template <bool EV, bool SHARDED = false, class RFn>
 __device__ __forceinline__ void density_pass(
-    const CellGrid& g, float cutsq, float valid_below, float4* stage,
-    float* __restrict__ rho, float* __restrict__ fp,
+    const CellGrid& g, int cell, float cutsq, float valid_below,
+    float4* stage, float* __restrict__ rho, float* __restrict__ fp,
     float* __restrict__ embed_part, const float* __restrict__ frho, int nrho,
     float rdrho, RFn&& r_fn) {
   const int C = g.C;
   const long long M = g.M;
   const int cap = kStageCells * C;
   uint16_t* lists = reinterpret_cast<uint16_t*>(stage + cap);
-  const int cell = blockIdx.x;
-  const CellWalk cw = cell_walk(g, cell, valid_below);
+  // the cell's first stored slot (the one-device form indexes as before)
+  const long long base = SHARDED ? cell_base(g, cell) : 0;
+  const CellWalk cw = cell_walk<SHARDED>(g, cell, valid_below);
   const float cut_keep = __fmul_rn(cutsq, kKeepMargin);
 
   float es = 0.f;  // the groups' F(rho) sums, in warp_sum's order
   for (int grp = 0; grp * 32 < C; ++grp) {
     const int i = grp * 32 + threadIdx.x;
     const bool own = i < C;
-    const long long si = (long long)cell * C + i;
+    const long long oi = (long long)cell * C + i;
+    const long long si = SHARDED ? base + i : oi;
     float xi = 0.f, yi = 0.f, zi = 0.f;
     if (own) {
       xi = g.x[si];
@@ -117,24 +124,26 @@ __device__ __forceinline__ void density_pass(
         });
       });
     }
-    const float emb = density_group<EV>(acc, own, si, xi, rho, fp, frho,
+    const float emb = density_group<EV>(acc, own, oi, xi, rho, fp, frho,
                                         nrho, rdrho, valid_below);
     if (EV) es += emb;
   }
-  if (EV && threadIdx.x == 0) embed_part[cell] = es;
+  if (EV && threadIdx.x == 0) embed_part[SHARDED ? blockIdx.x : cell] = es;
 }
 
-// The force pass of the block's cell: f_i -= psi' * d over the lane's
-// list, and with EV the cell's partials of sum P(r) and of
-// -1/2 sum rsq*psi'. psi_fn(fp_i + fp_j, r) -> psi' = (fp_i + fp_j)*G1(r)
-// + G2(r), rounded as the caller's form rounds it; p_fn(r) -> P(r) (EV
+// The force pass of `cell` of grid g (the block's): f_i -= psi' * d over
+// the lane's list (fp stored as x is, halo axes padded: the fp halo), f
+// at the cell's interior slots, and with EV the cell's partials of sum
+// P(r) and of -1/2 sum rsq*psi' into eng_part / vir_part[blockIdx.x].
+// psi_fn(fp_i + fp_j, r) -> psi' = (fp_i + fp_j)*G1(r) + G2(r), rounded
+// as the caller's form rounds it; p_fn(r) -> P(r) (EV
 // only), called after psi_fn of the same pair, so a form may keep what
 // psi_fn worked out from r. stage: eam_pass_bytes(C, true) of dynamic
 // shared memory.
-template <bool EV, class PsiFn, class PFn>
+template <bool EV, bool SHARDED = false, class PsiFn, class PFn>
 __device__ __forceinline__ void force_pass(
-    const CellGrid& g, float cutsq, float valid_below, float4* stage,
-    const float* __restrict__ fp, float* __restrict__ f,
+    const CellGrid& g, int cell, float cutsq, float valid_below,
+    float4* stage, const float* __restrict__ fp, float* __restrict__ f,
     float* __restrict__ eng_part, float* __restrict__ vir_part,
     PsiFn&& psi_fn, PFn&& p_fn) {
   const int C = g.C;
@@ -142,15 +151,18 @@ __device__ __forceinline__ void force_pass(
   const int cap = kStageCells * C;
   float* sfp = reinterpret_cast<float*>(stage + cap);
   uint16_t* lists = reinterpret_cast<uint16_t*>(sfp + cap);
-  const int cell = blockIdx.x;
-  const CellWalk cw = cell_walk(g, cell, valid_below);
+  const long long Mo = SHARDED ? interior_slots(g) : M;
+  // the cell's first stored slot (the one-device form indexes as before)
+  const long long base = SHARDED ? cell_base(g, cell) : 0;
+  const CellWalk cw = cell_walk<SHARDED>(g, cell, valid_below);
   const float cut_keep = __fmul_rn(cutsq, kKeepMargin);
 
   float es = 0.f, ws = 0.f;  // the groups' sums, in warp_sum's order
   for (int grp = 0; grp * 32 < C; ++grp) {
     const int i = grp * 32 + threadIdx.x;
     const bool own = i < C;
-    const long long si = (long long)cell * C + i;
+    const long long oi = (long long)cell * C + i;
+    const long long si = SHARDED ? base + i : oi;
     float xi = 0.f, yi = 0.f, zi = 0.f, fpi = 0.f;
     if (own) {
       xi = g.x[si];
@@ -180,9 +192,9 @@ __device__ __forceinline__ void force_pass(
       });
     }
     if (own) {
-      f[si] = fx;
-      f[M + si] = fy;
-      f[2 * M + si] = fz;
+      f[oi] = fx;
+      f[Mo + oi] = fy;
+      f[2 * Mo + oi] = fz;
     }
     if (EV) {
       es += warp_sum(e);
@@ -190,7 +202,8 @@ __device__ __forceinline__ void force_pass(
     }
   }
   if (EV && threadIdx.x == 0) {
-    eng_part[cell] = es;
-    vir_part[cell] = -0.5f * ws;
+    const int part = SHARDED ? (int)blockIdx.x : cell;  // cell on one device
+    eng_part[part] = es;
+    vir_part[part] = -0.5f * ws;
   }
 }

@@ -92,8 +92,8 @@ __global__ void eam_rho_rows_kernel(const __grid_constant__ CellGrid g,
                                     float rdrho, float valid_below) {
   extern __shared__ float4 stage[];  // eam_pass_bytes(C, false)
   const float4* tR = tab + kR * m.ne;
-  density_pass<EV>(g, m.cutsq, valid_below, stage, rho, fp, embed_part,
-                   frho, nrho, rdrho, [&](float r) {
+  density_pass<EV>(g, blockIdx.x, m.cutsq, valid_below, stage, rho, fp,
+                   embed_part, frho, nrho, rdrho, [&](float r) {
     float t;
     const int k = row_index(m, r, &t);
     return cubic(__ldg(tR + k), t);
@@ -116,7 +116,8 @@ __global__ void eam_force_rows_kernel(const __grid_constant__ CellGrid g,
   int k;    // the pair's piece and local coordinate, from psi's index
   float t;  // map, for P (nvcc would compute a second map again)
   force_pass<EV>(
-      g, m.cutsq, valid_below, stage, fp, f, eng_part, vir_part,
+      g, blockIdx.x, m.cutsq, valid_below, stage, fp, f, eng_part,
+      vir_part,
       [&](float fsum, float r) {
         k = row_index(m, r, &t);
         // psi' as the first design's SASS rounds it: the G1 product and

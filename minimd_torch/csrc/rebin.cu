@@ -50,10 +50,20 @@
 //
 // The neighbor mapping is one function, `neighbor`, that wraps
 // periodically; phase 1 finds a slot's key and phase 2 its sources with
-// it. The sharded migration (dead-cell padding on decomposed axes,
-// rebin_pallas.py:49-63) has it report an off-grid cell there, which
-// makes the slot a leaver. Needs min(nb) >= 3 (then at most one key fits
-// a pair of cells) and C <= 512 (a rank and a start fit 16 bits).
+// it. Needs min(nb) >= 3 on the wrapped axes (then at most one key fits a
+// pair of cells) and C <= 512 (a rank and a start fit 16 bits).
+//
+// The sharded form places one domain's residents in a decomposed run
+// (minimd_torch/parallel/comm.py; rebin_pallas.py:49-63 pads the pull
+// with dead cells): the grid is the domain's nb cells, a slot's cell is
+// its global cell (clamped to the global grid nbg) less the domain's
+// origin, and on a decomposed ("dead") axis `neighbor` does not wrap: an
+// off-grid cell there gets no key (the slot is lost, as it moved more
+// than one cell) and is no source (its atoms arrive through the
+// migration). The counts of the destination cells and the two overflow
+// classes (lost, capacity) are written apart for the migration's
+// arrivals. With origin 0, nbg = nb and no dead axis it is the one-device
+// rebin.
 
 #include <cuda_runtime.h>
 
@@ -69,19 +79,26 @@ struct Grid {
   long long M;                     // ncells * C
   float prd[3], off[3], inv[3];    // RebinConstants' f32 values
   float valid_below;
+  int nbg[3], org[3];              // the global grid, the domain's origin
+  int dead;                        // bit a: axis a does not wrap
+  long long slot0;                 // the sentinels' first slot
 };
 
-// The cell u + d on an axis of n cells, wrapped periodically (d in
-// {-1, 0, 1}, u in [0, n)).
-__device__ __forceinline__ int neighbor(int u, int d, int n) {
+// The cell u + d on an axis of n cells (d in {-1, 0, 1}, u in [0, n)),
+// wrapped periodically, or -1 off the grid of a dead axis.
+__device__ __forceinline__ int neighbor(int u, int d, int n, bool dead) {
   const int w = u + d;
+  if (dead) return w < 0 || w >= n ? -1 : w;
   return w < 0 ? w + n : (w >= n ? w - n : w);
 }
 
-// The pull offset d in {-1, 0, 1} with old == neighbor(now, d, n), or 2.
-__device__ __forceinline__ int axis_offset(int old, int now, int n) {
+// The pull offset d in {-1, 0, 1} with old == neighbor(now, d, n), or 2
+// (also for a cell `now` off the grid of a dead axis).
+__device__ __forceinline__ int axis_offset(int old, int now, int n,
+                                           bool dead) {
+  if (dead && (now < 0 || now >= n)) return 2;
   for (int d = -1; d <= 1; ++d)
-    if (neighbor(now, d, n) == old) return d;
+    if (neighbor(now, d, n, dead) == old) return d;
   return 2;
 }
 
@@ -109,6 +126,9 @@ __device__ __forceinline__ int warp_inclusive_sum(int c, int lane) {
   return c;
 }
 
+// SHARDED: the dead axes, origin and sentinel slot of a domain (from g);
+// else one device, with none of them in the code.
+template <bool SHARDED>
 __global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
                                  const float* __restrict__ x,
                                  int* __restrict__ perm,
@@ -150,9 +170,11 @@ __global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         float xs;
-        const int c = axis_cell(xv[a], g.prd[a], g.off[a], g.inv[a], n[a],
-                                &xs);
-        d[a] = axis_offset(old[a], c, n[a]);
+        const int c =
+            axis_cell(xv[a], g.prd[a], g.off[a], g.inv[a],
+                      SHARDED ? g.nbg[a] : n[a], &xs) - (SHARDED ? g.org[a]
+                                                                 : 0);
+        d[a] = axis_offset(old[a], c, n[a], SHARDED && ((g.dead >> a) & 1));
       }
       if (d[0] != 2 && d[1] != 2 && d[2] != 2)
         j = (d[2] + 1) * 9 + (d[1] + 1) * 3 + (d[0] + 1);
@@ -183,6 +205,7 @@ __global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
   if (lane == 0 && lost) atomicAdd(overflow, lost);
 }
 
+template <bool SHARDED>
 __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
                                     const float* __restrict__ x,
                                     const float* __restrict__ v,
@@ -192,6 +215,7 @@ __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
                                     float* __restrict__ x_out,
                                     float* __restrict__ v_out,
                                     int* __restrict__ t_out,
+                                    int* __restrict__ counts,
                                     int* __restrict__ overflow) {
   __shared__ int base[kWarpsPerBlock][32];  // per key; lanes 27-31: count
   __shared__ long long src_row[kWarpsPerBlock][kOffsets];
@@ -206,18 +230,25 @@ __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
   const int tx = t % g.nbx, ty = (t / g.nbx) % g.nby, tz = t / (g.nbx * g.nby);
   int c = 0;
   if (lane < kOffsets) {
-    const int src = (neighbor(tz, lane / 9 - 1, g.nbz) * g.nby
-                     + neighbor(ty, (lane / 3) % 3 - 1, g.nby)) * g.nbx
-                    + neighbor(tx, lane % 3 - 1, g.nbx);
-    const int p = cs[src * kOffsets + lane];
-    c = p & 0xffff;
-    src_row[warp][lane] = (long long)src * C;
-    src_start[warp][lane] = p >> 16;
+    const int sz = neighbor(tz, lane / 9 - 1, g.nbz, SHARDED && (g.dead & 4));
+    const int sy =
+        neighbor(ty, (lane / 3) % 3 - 1, g.nby, SHARDED && (g.dead & 2));
+    const int sx = neighbor(tx, lane % 3 - 1, g.nbx, SHARDED && (g.dead & 1));
+    src_row[warp][lane] = 0;
+    src_start[warp][lane] = 0;
+    if (sz >= 0 && sy >= 0 && sx >= 0) {  // off a dead axis: no source
+      const int src = (sz * g.nby + sy) * g.nbx + sx;
+      const int p = cs[src * kOffsets + lane];
+      c = p & 0xffff;
+      src_row[warp][lane] = (long long)src * C;
+      src_start[warp][lane] = p >> 16;
+    }
   }
   const int inc = warp_inclusive_sum(c, lane);
   const int count = __shfl_sync(0xffffffffu, inc, kOffsets - 1);
   base[warp][lane] = inc - c;
   __syncwarp();
+  if (lane == 0 && counts != nullptr) counts[t] = count;
   if (lane == 0 && count > C) atomicAdd(overflow, count - C);
 
   // two slots of t a lane at a time, their loads in flight together
@@ -268,8 +299,9 @@ __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
         t_out[d] = tv[h];
       } else {
         // cells.sentinel_positions: arange * 1e3 + 1e6, each op rounded
-        // in f32
-        x_out[d] = __fadd_rn(__fmul_rn((float)d, 1.0e3f), 1.0e6f);
+        // in f32 (from slot slot0 + d: parallel/comm.domain_sentinels)
+        const long long slot = SHARDED ? g.slot0 + d : d;
+        x_out[d] = __fadd_rn(__fmul_rn((float)slot, 1.0e3f), 1.0e6f);
         x_out[M + d] = x_out[2 * M + d] = 0.f;
         v_out[d] = v_out[M + d] = v_out[2 * M + d] = 0.f;
         t_out[d] = 0;
@@ -282,35 +314,47 @@ __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
 
 // x, v: (3, M) float32; typ: (M,) int32; x_out, v_out, t_out: the same
 // shapes, written in full; scratch: (M + 27 * ncells) int32 (perm, cs);
-// overflow: one int32, zeroed here. prd, off, inv: the f32
-// RebinConstants (box, grid offset, 1/binsize) per axis. Launches both
-// phases on `stream` and returns the first cudaGetLastError() that is
-// not 0.
+// overflow: int32, zeroed here: one (lost and capacity summed) or, with
+// `split`, two (lost, capacity); counts: (ncells,) int32 out, the atoms
+// that belong to each cell (may exceed C), or null. prd, off, inv: the
+// f32 RebinConstants (box, grid offset, 1/binsize) per axis; nbg: the
+// global grid, org: the domain's first cell per axis, dead: the bits of
+// the axes that do not wrap, slot0 the slot number of the first
+// sentinel (nbg = nb, org = 0, dead = 0, slot0 = 0 on one device).
+// Launches both phases on `stream` and returns the first
+// cudaGetLastError() that is not 0.
 extern "C" int rebin_launch(const void* x, const void* v, const void* typ,
                             void* x_out, void* v_out, void* t_out,
-                            void* scratch, void* overflow,
+                            void* scratch, void* overflow, void* counts,
                             int nbx, int nby, int nbz, int C,
                             float prdx, float prdy, float prdz,
                             float offx, float offy, float offz,
                             float invx, float invy, float invz,
-                            float valid_below, void* stream) {
+                            float valid_below, int nbgx, int nbgy, int nbgz,
+                            int orgx, int orgy, int orgz, int dead,
+                            int split, long long slot0, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int ncells = nbx * nby * nbz;
   const Grid g{nbx, nby, nbz, C, (long long)ncells * C,
                {prdx, prdy, prdz}, {offx, offy, offz}, {invx, invy, invz},
-               valid_below};
+               valid_below, {nbgx, nbgy, nbgz}, {orgx, orgy, orgz}, dead,
+               slot0};
   int* perm = (int*)scratch;
   int* cs = perm + g.M;
-  int* ovf = (int*)overflow;
-  cudaMemsetAsync(ovf, 0, sizeof(int), s);
+  int* lost = (int*)overflow;
+  int* cap = split ? lost + 1 : lost;
+  cudaMemsetAsync(lost, 0, (split ? 2 : 1) * sizeof(int), s);
   int rc = (int)cudaGetLastError();
   const int blocks = (ncells + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  rebin_bin_kernel<<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-      g, (const float*)x, perm, cs, ovf);
+  const bool sharded = split || dead || orgx || orgy || orgz || slot0;
+  (sharded ? rebin_bin_kernel<true> : rebin_bin_kernel<false>)
+      <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(g, (const float*)x, perm, cs,
+                                              lost);
   if (!rc) rc = (int)cudaGetLastError();
-  rebin_gather_kernel<<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-      g, (const float*)x, (const float*)v, (const int*)typ, perm, cs,
-      (float*)x_out, (float*)v_out, (int*)t_out, ovf);
+  (sharded ? rebin_gather_kernel<true> : rebin_gather_kernel<false>)
+      <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+          g, (const float*)x, (const float*)v, (const int*)typ, perm, cs,
+          (float*)x_out, (float*)v_out, (int*)t_out, (int*)counts, cap);
   if (!rc) rc = (int)cudaGetLastError();
   return rc;
 }

@@ -4,7 +4,10 @@ fused kernels and make_embedding_pallas.
 
 Two launches per force call: `eam_rho` (density, with the embedding in
 its epilogue) and `eam_force` (pair forces from the fp of the 27 cells).
-The kernels read the raw cell-major (3, M) positions. They take f32, a
+The kernels read the raw cell-major (3, M) positions; their sharded
+forms (a domain of a decomposed run) read positions and fp padded on the
+decomposed axes by the halo exchange, as ops/lj_cuda.py's does. They
+take f32, a
 single-cell stencil reach (binsize >= cutneigh) and any capacity
 C <= cells.MAX_CAPACITY. On a CPU tensor the closures take the plain
 versions (ops/eam_grid.py); on a CUDA tensor they launch the kernels or
@@ -25,14 +28,18 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._build import on_device
 from ..cells import MAX_CAPACITY, VALID_BELOW, CellGeometry
 from ..eam_file import PairPolys
 from .eam import EAMTables
 from .eam_grid import make_eam_pair_grid, make_eam_rho_grid, two_pass_force
-from .pairgrid import halo_extent, kept_candidates, walk_candidates
+from .pairgrid import (halo_extent, kept_candidates, plain_padded,
+                       sharded_grid, stencil_slice, walk_candidates)
 
-# Kernel launches since import (or since a caller reset them to 0).
+# Kernel launches since import (or since a caller reset them to 0): the
+# one-device forms and the sharded forms (a domain of a decomposed run).
 LAUNCHES = {"eam_rho": 0, "eam_force": 0}
+SHARDED_LAUNCHES = {"eam_rho_sharded": 0, "eam_force_sharded": 0}
 # csrc/eam_pass.cuh kStageCells (the EAM kernels' stage holds
 # STAGE_CELLS * C candidates), csrc/cell_stage.cuh kListLen and kListStep
 STAGE_CELLS, LIST_LEN, LIST_STEP = 9, 64, 8
@@ -109,82 +116,165 @@ def _check_tensor(t, name: str, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_args(geom: CellGeometry):
-    nbx, nby, nbz = geom.nb
-    return (nbx, nby, nbz, geom.capacity, *(float(p) for p in geom.prd))
+def _launch_args(geom: CellGeometry, nb):
+    return (*nb, geom.capacity, *(float(p) for p in geom.prd))
+
+
+def _interior_valid(geom: CellGeometry, nb_local, Xp):
+    """The occupancy of the interior slots of 1-cell padded grids Xp."""
+    return (stencil_slice(Xp[0], (0, 0, 0), 1, nb_local)
+            < VALID_BELOW).reshape(-1)
 
 
 def make_eam_rho_cuda(geom: CellGeometry, tables: EAMTables,
-                      dtype=torch.float32, device="cuda"):
-    """rho_pass(x, evflag) -> (rho (M,), fp (M,), embed energy sum), the
-    contract of ops/eam_grid.make_eam_rho_grid, through `eam_rho`."""
+                      dtype=torch.float32, device="cuda", nb_local=None,
+                      decomposed=None):
+    """rho_pass(x, evflag, out=None) -> (rho (M,), fp (M,), embed energy
+    sum), the contract of ops/eam_grid.make_eam_rho_grid, through
+    `eam_rho`; out, when given, takes fp. The sharded form (nb_local,
+    decomposed: per axis x, y, z) takes the domains of a decomposed run
+    on one device in one launch: their (D, 3, stored) positions padded on
+    the decomposed axes (lj_cuda.sharded_grid), giving their interiors'
+    rho, fp (D, M_local) and embed sums (D,)."""
     _check_geometry(geom, dtype)
-    M, ncells = geom.nslots, geom.ncells
+    nb, halo, M_in, M = sharded_grid(geom, nb_local, decomposed)
+    sharded = nb_local is not None
+    ncells = M // geom.capacity
+    counts, key = ((SHARDED_LAUNCHES, "eam_rho_sharded") if sharded
+                   else (LAUNCHES, "eam_rho"))
     params, nbody = pair_params(tables.polys, tables.cut)
     frho = torch.as_tensor(np.ascontiguousarray(tables.frho_spline.T),
                            dtype=torch.float32, device=device)
     rdrho = 1.0 / tables.drho
     plain = make_eam_rho_grid(geom, tables, dtype, "cpu")
+    plain_padded_pass = make_eam_rho_grid(geom, tables, dtype, "cpu",
+                                          nb_local=nb, padded=True)
     zero = torch.zeros((), dtype=dtype, device=device)
-    grid = _launch_args(geom)
+    grid = _launch_args(geom, nb)
 
-    def rho_pass(x, evflag: bool):
-        if x.device.type == "cpu":
+    def plain_pass(x, evflag):
+        if not sharded:
             return plain(x, evflag)
-        _check_tensor(x, "x", (3, M))
+        outs = []
+        for xd in x:
+            Xp = plain_padded(geom, nb, decomposed, xd)
+            outs.append(plain_padded_pass(
+                Xp, _interior_valid(geom, nb, Xp), evflag))
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    def rho_pass(x, evflag: bool, out=None):
+        if x.device.type == "cpu":
+            rho, fp, emb = plain_pass(x, evflag)
+            if out is not None:
+                out.copy_(fp)
+                fp = out
+            return rho, fp, emb
+        lead = tuple(x.shape[:1]) if sharded else ()
+        D = lead[0] if sharded else 1
+        _check_tensor(x, "x", lead + (3, M_in))
         if frho.device != x.device:
             raise ValueError(f"x on {x.device}, tables on {frho.device}")
-        rho = torch.empty(M, dtype=torch.float32, device=x.device)
-        fp = torch.empty(M, dtype=torch.float32, device=x.device)
-        embed = (torch.empty(ncells, dtype=torch.float32, device=x.device)
-                 if evflag else None)
-        rc = _build.lib().eam_rho_launch(
-            x.data_ptr(), rho.data_ptr(), fp.data_ptr(),
-            embed.data_ptr() if evflag else None, frho.data_ptr(),
-            tables.nrho, rdrho, ctypes.addressof(params), nbody, *grid,
-            VALID_BELOW, int(evflag),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        LAUNCHES["eam_rho"] += 1
+        rho = torch.empty(lead + (M,), dtype=torch.float32, device=x.device)
+        if out is None:
+            fp = torch.empty(lead + (M,), dtype=torch.float32,
+                             device=x.device)
+        else:
+            _check_tensor(out, "out", lead + (M,))
+            fp = out
+        embed = (torch.empty(D * ncells, dtype=torch.float32,
+                             device=x.device) if evflag else None)
+        # a sharded launch may run on another card than the current
+        with on_device(x.device, sharded):
+            rc = _build.lib().eam_rho_launch(
+                x.data_ptr(), rho.data_ptr(), fp.data_ptr(),
+                embed.data_ptr() if evflag else None, frho.data_ptr(),
+                tables.nrho, rdrho, ctypes.addressof(params), nbody, *grid,
+                VALID_BELOW, int(evflag), halo, D,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        counts[key] += 1
         _build.check(rc, "eam_rho_launch")
-        return rho, fp, torch.sum(embed) if evflag else zero
+        if not evflag:
+            return rho, fp, zero
+        if sharded:
+            return rho, fp, embed.reshape(D, ncells).sum(dim=1)
+        return rho, fp, torch.sum(embed)
 
     return rho_pass
 
 
 def make_eam_pair_cuda(geom: CellGeometry, tables: EAMTables,
-                       dtype=torch.float32, device="cuda"):
-    """pair_pass(x, fp, evflag) -> (f (3, M), sum P, virial), the contract
-    of ops/eam_grid.make_eam_pair_grid, through `eam_force`."""
+                       dtype=torch.float32, device="cuda", nb_local=None,
+                       decomposed=None):
+    """pair_pass(x, fp, evflag, out=None) -> (f (3, M), sum P, virial),
+    the contract of ops/eam_grid.make_eam_pair_grid, through `eam_force`;
+    out, when given, takes f. The sharded form takes the domains' (D, 3,
+    stored) positions and (D, stored) fp, both padded on the decomposed
+    axes (the fp halo), giving their interiors' forces (D, 3, M_local)
+    and sums (D,)."""
     _check_geometry(geom, dtype)
-    M, ncells = geom.nslots, geom.ncells
+    nb, halo, M_in, M = sharded_grid(geom, nb_local, decomposed)
+    sharded = nb_local is not None
+    ncells = M // geom.capacity
+    counts, key = ((SHARDED_LAUNCHES, "eam_force_sharded") if sharded
+                   else (LAUNCHES, "eam_force"))
     params, nbody = pair_params(tables.polys, tables.cut)
     plain = make_eam_pair_grid(geom, tables, dtype, "cpu")
+    plain_padded_pass = make_eam_pair_grid(geom, tables, dtype, "cpu",
+                                           nb_local=nb, padded=True)
     zero = torch.zeros((), dtype=dtype, device=device)
-    grid = _launch_args(geom)
+    grid = _launch_args(geom, nb)
 
-    def pair_pass(x, fp, evflag: bool):
-        if x.device.type == "cpu":
+    def plain_pass(x, fp, evflag):
+        if not sharded:
             return plain(x, fp, evflag)
-        _check_tensor(x, "x", (3, M))
-        _check_tensor(fp, "fp", (M,))
+        outs = [plain_padded_pass(
+            plain_padded(geom, nb, decomposed, xd),
+            plain_padded(geom, nb, decomposed, fd, coord=False), evflag)
+            for xd, fd in zip(x, fp)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    def pair_pass(x, fp, evflag: bool, out=None):
+        if x.device.type == "cpu":
+            f, e, w = plain_pass(x, fp, evflag)
+            if out is not None:
+                out.copy_(f)
+                f = out
+            return f, e, w
+        lead = tuple(x.shape[:1]) if sharded else ()
+        D = lead[0] if sharded else 1
+        _check_tensor(x, "x", lead + (3, M_in))
+        _check_tensor(fp, "fp", lead + (M_in,))
         if fp.device != x.device:
             raise ValueError("x and fp on different devices")
-        f = torch.empty((3, M), dtype=torch.float32, device=x.device)
+        if out is None:
+            f = torch.empty(lead + (3, M), dtype=torch.float32,
+                            device=x.device)
+        else:
+            _check_tensor(out, "out", lead + (3, M))
+            f = out
         if evflag:
-            eng = torch.empty(ncells, dtype=torch.float32, device=x.device)
-            vir = torch.empty(ncells, dtype=torch.float32, device=x.device)
+            eng = torch.empty(D * ncells, dtype=torch.float32,
+                              device=x.device)
+            vir = torch.empty(D * ncells, dtype=torch.float32,
+                              device=x.device)
             eptr, vptr = eng.data_ptr(), vir.data_ptr()
         else:
             eptr = vptr = None
-        rc = _build.lib().eam_force_launch(
-            x.data_ptr(), fp.data_ptr(), f.data_ptr(), eptr, vptr,
-            ctypes.addressof(params), nbody, *grid, VALID_BELOW, int(evflag),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        LAUNCHES["eam_force"] += 1
+        # a sharded launch may run on another card than the current
+        with on_device(x.device, sharded):
+            rc = _build.lib().eam_force_launch(
+                x.data_ptr(), fp.data_ptr(), f.data_ptr(), eptr, vptr,
+                ctypes.addressof(params), nbody, *grid, VALID_BELOW,
+                int(evflag), halo, D,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        counts[key] += 1
         _build.check(rc, "eam_force_launch")
-        if evflag:
-            return f, torch.sum(eng), torch.sum(vir)
-        return f, zero, zero
+        if not evflag:
+            return f, zero, zero
+        if sharded:
+            return (f, eng.reshape(D, ncells).sum(dim=1),
+                    vir.reshape(D, ncells).sum(dim=1))
+        return f, torch.sum(eng), torch.sum(vir)
 
     return pair_pass
 

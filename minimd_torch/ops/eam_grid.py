@@ -107,13 +107,18 @@ def polynomial_pair_fns(tables: EAMTables):
 
 
 def make_eam_rho_grid(geom: CellGeometry, tables: EAMTables,
-                      dtype=torch.float32, device="cpu", pair_fns=None):
+                      dtype=torch.float32, device="cpu", pair_fns=None,
+                      nb_local=None, padded=False):
     """The density pass: rho_pass(x, evflag) -> (rho (M,), fp (M,),
     embed energy sum, zero without evflag). pair_fns(r, names) evaluates
     the pair functions (default: polynomial_pair_fns; ops/eam_rows.py
-    passes the gather tables')."""
-    nbx, nby, nbz = nb = geom.nb
-    C, M = geom.capacity, geom.nslots
+    passes the gather tables'). padded=True returns rho_pass(Xp, valid,
+    evflag) instead, on the 3 halo-padded grids Xp of an interior of
+    nb_local cells (default geom.nb, a decomposed run's domain) whose
+    slots' occupancy is `valid`."""
+    nbx, nby, nbz = nb = tuple(nb_local) if nb_local is not None else geom.nb
+    C = geom.capacity
+    M = nbx * nby * nbz * C
     h, offsets, diag = _grid_setup(geom, device)
     pair_fns = pair_fns or polynomial_pair_fns(tables)
     cutsq = tables.cut * tables.cut
@@ -121,8 +126,7 @@ def make_eam_rho_grid(geom: CellGeometry, tables: EAMTables,
     rdrho = 1.0 / tables.drho
     zero = torch.zeros((), dtype=dtype, device=device)
 
-    def rho_pass(x, evflag: bool):
-        Xp = to_padded_soa(x, geom, h)
+    def rho_padded(Xp, valid, evflag: bool):
         Xi = [stencil_slice(g, (0, 0, 0), h, nb)[..., :, None] for g in Xp]
         rho = torch.zeros((nbz, nby, nbx, C), dtype=dtype, device=device)
         for off in offsets:
@@ -130,30 +134,33 @@ def make_eam_rho_grid(geom: CellGeometry, tables: EAMTables,
             val = pair_fns(r, ("R",))["R"]
             rho = rho + torch.where(mask, val, 0.0).sum(dim=-1)
         rho = rho.reshape(M)
-        fp, embed = embedding(rho, frho, rdrho,
-                              is_valid(x) if evflag else None)
+        fp, embed = embedding(rho, frho, rdrho, valid if evflag else None)
         return rho, fp, embed if evflag else zero
 
-    return rho_pass
+    def rho_pass(x, evflag: bool):
+        return rho_padded(to_padded_soa(x, geom, h), is_valid(x), evflag)
+
+    return rho_padded if padded else rho_pass
 
 
 def make_eam_pair_grid(geom: CellGeometry, tables: EAMTables,
-                       dtype=torch.float32, device="cpu", pair_fns=None):
+                       dtype=torch.float32, device="cpu", pair_fns=None,
+                       nb_local=None, padded=False):
     """The force pass: pair_pass(x, fp, evflag) -> (f (3, M), sum P,
     virial), the last two zero without evflag. pair_fns as for
-    make_eam_rho_grid."""
-    nbx, nby, nbz = nb = geom.nb
-    C, M = geom.capacity, geom.nslots
+    make_eam_rho_grid. padded=True returns pair_pass(Xp, fp_pad, evflag)
+    on halo-padded grids of positions and of fp (the fp halo of a
+    decomposed run, the reference's mid-force communicate,
+    force_eam.cpp:851-887)."""
+    nbx, nby, nbz = nb = tuple(nb_local) if nb_local is not None else geom.nb
+    C = geom.capacity
+    M = nbx * nby * nbz * C
     h, offsets, diag = _grid_setup(geom, device)
     pair_fns = pair_fns or polynomial_pair_fns(tables)
     cutsq = tables.cut * tables.cut
 
-    def pair_pass(x, fp, evflag: bool):
-        Xp = to_padded_soa(x, geom, h)
+    def pair_padded(Xp, fp_pad, evflag: bool):
         Xi = [stencil_slice(g, (0, 0, 0), h, nb)[..., :, None] for g in Xp]
-        # fp halo (no coordinate shift): the reference's mid-force
-        # communicate (force_eam.cpp:851-887)
-        fp_pad = pad_grid_int(fp, geom, h)
         fp_i = stencil_slice(fp_pad, (0, 0, 0), h, nb)[..., :, None]
         f = [torch.zeros((nbz, nby, nbx, C), dtype=dtype, device=device)
              for _ in range(3)]
@@ -174,7 +181,13 @@ def make_eam_pair_grid(geom: CellGeometry, tables: EAMTables,
         fout = torch.stack([fd.reshape(M) for fd in f], dim=0)
         return fout, eng, vir
 
-    return pair_pass
+    def pair_pass(x, fp, evflag: bool):
+        # fp halo (no coordinate shift): the reference's mid-force
+        # communicate (force_eam.cpp:851-887)
+        return pair_padded(to_padded_soa(x, geom, h),
+                           pad_grid_int(fp, geom, h), evflag)
+
+    return pair_padded if padded else pair_pass
 
 
 def two_pass_force(rho_pass, pair_pass):

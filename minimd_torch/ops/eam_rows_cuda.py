@@ -85,7 +85,7 @@ def make_eam_rho_rows_cuda(geom: CellGeometry, tables: EAMTables,
     rdrho = 1.0 / tables.drho
     plain = make_eam_rho_rows(geom, tables, dtype, "cpu")
     zero = torch.zeros((), dtype=dtype, device=device)
-    grid = _launch_args(geom)
+    grid = _launch_args(geom, geom.nb)
 
     def rho_pass(x, evflag: bool):
         if x.device.type == "cpu":
@@ -119,7 +119,7 @@ def make_eam_pair_rows_cuda(geom: CellGeometry, tables: EAMTables,
     tab, rmap = _tables_on(tables, device)
     plain = make_eam_pair_rows(geom, tables, dtype, "cpu")
     zero = torch.zeros((), dtype=dtype, device=device)
-    grid = _launch_args(geom)
+    grid = _launch_args(geom, geom.nb)
 
     def pair_pass(x, fp, evflag: bool):
         if x.device.type == "cpu":

@@ -19,15 +19,17 @@ from .pairgrid import halo_extent, pad_grid_int, stencil_slice, to_padded_soa
 
 
 def lj_pair_loop(Xp, Tp, geom: CellGeometry, params: LJParams, dtype,
-                 evflag: bool):
+                 evflag: bool, nb_local=None):
     """Dense stencil pair loop over padded coordinate grids.
 
     Xp: list of 3 padded (Z+2h, Y+2h, X+2h, C) coordinate grids.
     Tp: padded type grid (or None when parameters are type-uniform).
+    nb_local: the interior's (X, Y, Z), a domain's local grid in a
+    decomposed run (default geom.nb).
     Returns ([f0, f1, f2] interior force grids, eng, virial) with the raw
     full-neighbor sums already scaled (eng*4, virial*0.5).
     """
-    nb = geom.nb
+    nb = tuple(nb_local) if nb_local is not None else geom.nb
     nbx, nby, nbz = nb
     C = geom.capacity
     h = halo_extent(geom)

@@ -28,41 +28,110 @@ def halo_extent(geom: CellGeometry) -> int:
     return int(np.abs(geom.stencil).max())
 
 
-def to_padded_soa(x: torch.Tensor, geom: CellGeometry, h: int):
+def to_padded_soa(x, geom: CellGeometry, h: int, nb_local=None,
+                  exchanges=None):
     """(3, M) flat cell-major positions -> 3 padded (Z+2h, Y+2h, X+2h, C)
-    coordinate grids with periodic halo images."""
-    nbx, nby, nbz = geom.nb
+    coordinate grids with halo images.
+
+    One device: every axis is a periodic self-wrap. A spatially
+    decomposed run (minimd_torch/parallel) passes `nb_local`, the
+    domains' local grid shape, the list of every domain's (3, M_local)
+    positions as x, and `exchanges[grid_axis](grids, coord_dim) -> [(lo,
+    hi), ...]` for each decomposed axis (grid axes 0=z, 1=y, 2=x): the
+    hook takes every domain's partially padded grid and returns each
+    one's halo slabs, shifted where they cross the box (the reference's
+    borders/communicate, comm.cpp:276-317,700-883, as in
+    minimd_tpu/ops/pairgrid.py). The result is then one list of 3 grids
+    per domain."""
+    nbx, nby, nbz = nb_local if nb_local is not None else geom.nb
     C = geom.capacity
-    return [_pad_halo(x[d].reshape(nbz, nby, nbx, C), h, float(geom.prd[d]), d)
-            for d in range(3)]
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    grids = [_pad_halo([xd[d].reshape(nbz, nby, nbx, C) for xd in xs], h,
+                       float(geom.prd[d]), d, exchanges) for d in range(3)]
+    out = [[grids[d][k] for d in range(3)] for k in range(len(xs))]
+    return out if isinstance(x, (list, tuple)) else out[0]
 
 
-def _pad_halo(g: torch.Tensor, h: int, prd_d: float, coord_dim: int):
-    """Pad a (Z, Y, X, C) grid of coordinate `coord_dim` with a periodic
-    halo of width h; images along the coordinate's own spatial axis
-    (axis 2 - coord_dim) are shifted by ±prd."""
-    own_axis = 2 - coord_dim
-    for axis in (2, 1, 0):  # x first, then y, then z (reference swap order)
-        n = g.shape[axis]
-        lo = g.narrow(axis, n - h, h)
-        hi = g.narrow(axis, 0, h)
-        if axis == own_axis:
-            lo = lo - prd_d
-            hi = hi + prd_d
-        g = torch.cat([lo, g, hi], dim=axis)
-    return g
-
-
-def pad_grid_int(t: torch.Tensor, geom: CellGeometry, h: int):
-    """Pad a (M,) per-slot cell-major array (types, cell ids, channels)
-    with a periodic halo; no coordinate shift."""
-    nbx, nby, nbz = geom.nb
-    g = t.reshape(nbz, nby, nbx, geom.capacity)
+def _pad_halo(gs, h: int, prd_d: float, coord_dim, exchanges=None,
+              wrap: bool = True):
+    """Pad every (Z, Y, X, C) grid of gs (one per domain) with a halo of
+    width h, axis by axis, x first, then y, then z (the reference's swap
+    order, so corner images compose). An axis with an exchange hook takes
+    its slabs from it; else, with `wrap`, a periodic self-wrap whose
+    images along the coordinate's own spatial axis (2 - coord_dim) are
+    shifted by +-prd (coord_dim None: no shift); without `wrap` the axis
+    stays unpadded."""
+    own_axis = None if coord_dim is None else 2 - coord_dim
     for axis in (2, 1, 0):
-        n = g.shape[axis]
-        g = torch.cat([g.narrow(axis, n - h, h), g, g.narrow(axis, 0, h)],
-                      dim=axis)
-    return g
+        if exchanges is not None and axis in exchanges:
+            halos = exchanges[axis](gs, coord_dim)
+        elif wrap:
+            halos = []
+            for g in gs:
+                n = g.shape[axis]
+                lo = g.narrow(axis, n - h, h)
+                hi = g.narrow(axis, 0, h)
+                if axis == own_axis:
+                    lo = lo - prd_d
+                    hi = hi + prd_d
+                halos.append((lo, hi))
+        else:
+            continue
+        gs = [torch.cat([lo, g, hi], dim=axis)
+              for g, (lo, hi) in zip(gs, halos)]
+    return gs
+
+
+def pad_grid_int(t, geom: CellGeometry, h: int, nb_local=None,
+                 exchanges=None):
+    """Pad a (M,) per-slot cell-major array (types, fp, cell ids,
+    channels) with a halo: periodic self-copies, or the slabs of the
+    `exchanges` hooks on decomposed axes (as to_padded_soa, with t the
+    list of every domain's array), never shifted."""
+    nbx, nby, nbz = nb_local if nb_local is not None else geom.nb
+    ts = t if isinstance(t, (list, tuple)) else [t]
+    out = _pad_halo([a.reshape(nbz, nby, nbx, geom.capacity) for a in ts],
+                    h, 0.0, None, exchanges)
+    return out if isinstance(t, (list, tuple)) else out[0]
+
+
+def sharded_grid(geom: CellGeometry, nb_local, decomposed):
+    """(nb, halo bits, stored slots, interior slots) of the pair kernels:
+    one device without nb_local; else a domain of nb_local cells stored
+    with one halo cell on each side of the decomposed axes (x, y, z), the
+    input that parallel/step.py's Halo(wrap=False) gives."""
+    if nb_local is None:
+        return geom.nb, 0, geom.nslots, geom.nslots
+    dec = tuple(bool(d) for d in (decomposed or (False,) * 3))
+    bits = sum(1 << a for a in range(3) if dec[a])
+    C = geom.capacity
+    stored = C * int(np.prod([n + 2 * d for n, d in zip(nb_local, dec)]))
+    return tuple(nb_local), bits, stored, C * int(np.prod(nb_local))
+
+
+def plain_padded(geom: CellGeometry, nb_local, decomposed, x, coord=True):
+    """The kernels' padded input x ((3, stored) positions, or a (stored,)
+    field with coord=False) completed to the plain pair loops' 1-cell
+    halo on every axis: the undecomposed axes wrapped periodically, as
+    the kernels wrap them (a position's own axis shifted by +-prd)."""
+    dec = tuple(bool(d) for d in decomposed)
+    shape = tuple(n + 2 * d for n, d in zip(nb_local, dec))[::-1] + (
+        geom.capacity,)
+    rows = [x[d] for d in range(3)] if coord else [x]
+    out = []
+    for d, row in enumerate(rows):
+        g = row.reshape(shape)
+        for axis in (2, 1, 0):
+            if dec[2 - axis]:
+                continue
+            n = g.shape[axis]
+            lo, hi = g.narrow(axis, n - 1, 1), g.narrow(axis, 0, 1)
+            if coord and axis == 2 - d:
+                lo = lo - float(geom.prd[d])
+                hi = hi + float(geom.prd[d])
+            g = torch.cat([lo, g, hi], dim=axis)
+        out.append(g)
+    return out if coord else out[0]
 
 
 def stencil_slice(Ypad: torch.Tensor, off, h: int, nb):

@@ -1,0 +1,396 @@
+"""Atom migration of a decomposed run: the counterpart of
+minimd_tpu/parallel/comm.py's make_exchange_rebin.
+
+The reference's Comm::exchange (comm.cpp:364-597) walks the dimensions in
+order, ships leavers to the +/-1 neighbor and lets later dimensions carry
+corner movers onward. Here each hop packs every domain's leavers into
+fixed-capacity buffers and copies them along the mesh ring; arrivals are
+appended to the domain's atom pool, the residents are placed by the pull
+(whose window takes dead cells on decomposed axes) and the arrivals are
+inserted after each cell's residents. Over-capacity events are counted
+per class, [movement, capacity, buffer]: the runner grows the cell
+capacity or the buffers and replays (the reference's growsend/growrecv,
+comm.cpp:887-909), and raises with the --safe_exchange remedy for a
+genuine movement overflow.
+
+Every step of the JAX version is here with the same operations in the
+same order, so that a float64 migration is bit for bit the JAX one, but
+for the sentinels of the empty slots, which are distinct across domains
+here (domain_sentinels). The
+domains of a device run batched (mesh.Router); the argsorts are stable,
+as jnp.argsort is. On a CUDA card in float32 the residents are placed by
+the sharded form of the rebin kernels (ops/rebin_cuda.py), bit for bit
+the plain place_residents.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cells
+from ..cells import CellGeometry
+from .mesh import AXES, Mesh, Router
+
+_DIM = {"x": 0, "y": 1, "z": 2}
+
+
+def _cols(geom: CellGeometry, dtype, device):
+    """(1, 3, 1) prd, offset, 1/binsize in dtype and (1, 3, 1) int64
+    nb - 1 (cells.cell_columns, with a domain axis in front)."""
+    prd, off, inv, nbm1 = cells.cell_columns(geom, dtype, device)
+    return prd[None], off[None], inv[None], nbm1[None].long()
+
+
+def global_cell_index(xw, k):
+    """(..., 3, P) wrapped positions -> (..., 3, P) int64 global cell
+    coordinates (the JAX version's global_cell_index, op for op: the grid
+    offset, the unfolding below it, then the clamped truncation)."""
+    prd, off, inv, nbm1 = k
+    g = xw - off
+    g = torch.where(g < 0, g + prd, g)
+    return torch.minimum(torch.clamp((g * inv).to(torch.int32), min=0),
+                         nbm1).long()
+
+
+def dead_pads(decomposed):
+    """pairgrid hooks that pad the decomposed axes (x, y, z) with dead
+    cells (-1 for integers, 0 else): the pull's window on a domain."""
+    def dead(gs, coord_dim, *, axis):
+        out = []
+        for g in gs:
+            shp = list(g.shape)
+            shp[axis] = 1
+            fill = 0 if g.dtype.is_floating_point else -1
+            z = torch.full(shp, fill, dtype=g.dtype, device=g.device)
+            out.append((z, z))
+        return out
+
+    return {ax: (lambda gs, cd, ax=ax: dead(gs, cd, axis=ax))
+            for ax in range(3) if decomposed[2 - ax]} or None
+
+
+def domain_sentinels(M_local: int, domain: int, dtype, device):
+    """(3, M_local) sentinel positions of a domain's slots: those of slots
+    domain*M_local onward of cells.sentinel_positions, so that no two
+    domains' empty slots coincide. (The JAX package fills every domain's
+    empty slots with sentinel_positions(M_local): a domain spanning one
+    cell on a decomposed axis then meets its neighbor's sentinels at
+    distance 0 in the plain pair loops, which count P(0) into the EAM
+    energy and make the LJ energy non-finite.)"""
+    base = (torch.arange(domain * M_local, (domain + 1) * M_local,
+                         dtype=dtype, device=device) * cells._SENTINEL_SPACING
+            + cells._SENTINEL_BASE)
+    zero = torch.zeros_like(base)
+    return torch.stack([base, zero, zero], dim=0)
+
+
+def place_residents(x, v, typ, valid, geom: CellGeometry, nb_local, origin,
+                    decomposed, pads, sentinel, k=None):
+    """The pull of one domain's residents, the plain version of the
+    sharded rebin kernels. x, v: (3, M_local); typ, valid: (M_local,);
+    origin: the domain's first global cell per axis (x, y, z); decomposed:
+    per axis. A valid slot's cell is its global cell less the origin; it
+    is lost (counted as movement overflow, not placed) when that is more
+    than one cell from the slot's cell on an axis, with the periodic wrap
+    only on undecomposed axes, or off the domain on a decomposed axis.
+    Returns (x, v, typ, counts (ncl,) int32, moved, capacity): `sentinel`
+    (3, M_local) positions, zeros and type 0 fill the empty slots."""
+    lx, ly, lz = nb_local
+    C = geom.capacity
+    Ml = lx * ly * lz * C
+    k = k or _cols(geom, x.dtype, x.device)
+    xw = cells.pbc_wrap(x, k[0][0])
+    cg = global_cell_index(xw[None], k)[0]
+    loc = [cg[d] - origin[d] for d in range(3)]
+    slot = torch.arange(Ml, device=x.device) // C
+    sxyz = (slot % lx, (slot // lx) % ly, slot // (lx * ly))
+    near = torch.ones(Ml, dtype=torch.bool, device=x.device)
+    for d, L in enumerate(nb_local):
+        dlt = (loc[d] - sxyz[d]).abs()
+        if decomposed[d]:
+            # off the domain: no destination here (the migration's leavers
+            # never are; the sharded kernels count such a slot lost)
+            near = near & (loc[d] >= 0) & (loc[d] < L)
+        else:
+            dlt = torch.minimum(dlt, L - dlt)
+        near = near & (dlt <= 1)
+    moved = (valid & ~near).sum().to(torch.int32)
+    cid = torch.where(valid, (loc[2] * ly + loc[1]) * lx + loc[0], -1)
+    g = xw - k[1][0]
+    xs = torch.where(g < 0, xw + k[0][0], xw)
+    outs, counts, cap = cells.rebin_pull(
+        cid, [xs[0], xs[1], xs[2], v[0], v[1], v[2], typ], geom,
+        nb_local=nb_local, pad_exchanges=pads)
+    occ = (torch.arange(C, device=x.device)[None] < counts[:, None]
+           ).reshape(Ml)
+    new_x = torch.stack([torch.where(occ, outs[d].reshape(Ml), sentinel[d])
+                         for d in range(3)])
+    new_v = torch.stack([torch.where(occ, outs[3 + d].reshape(Ml), 0.0)
+                         for d in range(3)])
+    new_t = torch.where(occ, outs[6].reshape(Ml), 0)
+    return new_x, new_v, new_t, counts, moved, cap
+
+
+def make_exchange_rebin(geom: CellGeometry, mesh: Mesh, router: Router,
+                        nb_local, dtype, buf_cap: int | None = None,
+                        hops: int = 1, kernel: bool = False,
+                        graph: bool = False):
+    """exchange_rebin(x, v, typ, valid) -> (x, v, typ, valid, overflow),
+    each a list per device group (router.groups) of the group's stacked
+    domains: x, v (Dg, 3, M_local), typ (Dg, M_local) int32, valid
+    (Dg, M_local) bool; overflow (Dg, 3) int32, [movement, capacity,
+    buffer] per domain (see minimd_tpu/parallel/comm.py). x may lie
+    slightly outside the box.
+
+    buf_cap: the migration buffers' slots per axis and direction
+    (default: one boundary cell layer, the hard bound of hops == 1 under
+    the skin guarantee), clamped to the domain's slots. hops: passes per
+    axis (--safe_exchange forwards leavers up to hops domains; then the
+    sort placement). kernel: place the residents with the sharded rebin
+    kernels (float32 on CUDA, spans of 3 cells or more on undecomposed
+    axes, hops == 1). graph: on one CUDA device, capture the whole
+    migration (some hundred small launches, host-bound) in a CUDA graph
+    on its first call and replay it after (graphed)."""
+    lx, ly, lz = nb_local
+    C = geom.capacity
+    Ml = lx * ly * lz * C
+    ncl = lx * ly * lz
+    span = {"x": lx, "y": ly, "z": lz}
+    caps = {"x": ly * lz * C, "y": lx * lz * C, "z": lx * ly * C}
+    if buf_cap is not None:
+        caps = {a: min(int(buf_cap), Ml) for a in caps}
+    spans_ok = all(mesh.shape[a] > 1 or span[a] >= 3 for a in AXES)
+    use_pull = hops == 1 and spans_ok
+    if kernel and not use_pull:
+        raise ValueError("the sharded rebin kernels need hops == 1 and "
+                         "spans of 3 cells or more on undecomposed axes")
+    decomposed = mesh.decomposed
+    pads = dead_pads(decomposed)
+    groups = router.groups
+    consts = [_cols(geom, dtype, dev) for dev, _ in groups]
+    coords = [{a: torch.tensor([mesh.coord(d)[a] for d in ks], device=dev)
+               for a in AXES} for dev, ks in groups]
+    origins = [[tuple(mesh.coord(d)[a] * span[a] for a in ("x", "y", "z"))
+                for d in ks] for _, ks in groups]
+    sentinels = [torch.stack([domain_sentinels(Ml, d, dtype, dev)
+                              for d in ks]) for dev, ks in groups]
+    if kernel:
+        from ..ops.rebin_cuda import make_rebin_cuda
+        placers = [make_rebin_cuda(geom, dev, nb_local=nb_local,
+                                   decomposed=decomposed)
+                   for dev, _ in groups]
+
+    def exchange_rebin(x, v, typ, valid):
+        G = len(groups)
+        pool_x = [cells.pbc_wrap(x[g], consts[g][0]) for g in range(G)]
+        pool_v, pool_t, pool_ok = list(v), list(typ), list(valid)
+        zero = [torch.zeros(len(ks), dtype=torch.int32, device=dev)
+                for dev, ks in groups]
+        ovf_move, ovf_cap, ovf_buf = list(zero), list(zero), list(zero)
+
+        for name in ("x", "y", "z"):
+            n = mesh.shape[name]
+            if n == 1:
+                continue
+            d, L, B = _DIM[name], span[name], caps[name]
+            for _hop in range(hops):
+                packs = {"lo": [], "hi": []}
+                stay = []
+                for g in range(G):
+                    cell_d = global_cell_index(pool_x[g], consts[g])[:, d]
+                    diff = cell_d // L - coords[g][name][:, None]
+                    half = n // 2
+                    diff = torch.where(diff > half, diff - n, diff)
+                    diff = torch.where(diff < -half, diff + n, diff)
+                    lo = pool_ok[g] & (diff < 0)
+                    hi = pool_ok[g] & (diff > 0)
+                    for key, leaving in (("lo", lo), ("hi", hi)):
+                        order = torch.argsort((~leaving).to(torch.uint8),
+                                              dim=-1, stable=True)[:, :B]
+                        count = leaving.sum(dim=-1)
+                        bx = pool_x[g].gather(2, order[:, None].expand(
+                            -1, 3, -1))
+                        bv = pool_v[g].gather(2, order[:, None].expand(
+                            -1, 3, -1))
+                        bt = pool_t[g].gather(1, order)
+                        bok = ((torch.arange(B, device=order.device)[None]
+                                < count[:, None]) & (count[:, None] <= B))
+                        ovf_buf[g] = ovf_buf[g] + (count - B).clamp(
+                            min=0).to(torch.int32)
+                        packs[key].append((bx, bv, bt, bok))
+                    stay.append(pool_ok[g] & ~lo & ~hi)
+                # lo-bound leavers go down the ring and arrive from above
+                rlo = [router.ring([p[i] for p in packs["lo"]], name, 1)
+                       for i in range(4)]
+                rhi = [router.ring([p[i] for p in packs["hi"]], name, -1)
+                       for i in range(4)]
+                for g in range(G):
+                    pool_x[g] = torch.cat([pool_x[g], rlo[0][g], rhi[0][g]],
+                                          dim=2)
+                    pool_v[g] = torch.cat([pool_v[g], rlo[1][g], rhi[1][g]],
+                                          dim=2)
+                    pool_t[g] = torch.cat([pool_t[g], rlo[2][g], rhi[2][g]],
+                                          dim=1)
+                    pool_ok[g] = torch.cat([stay[g], rlo[3][g], rhi[3][g]],
+                                           dim=1)
+
+        out = ([], [], [], [], [])
+        for g in range(G):
+            res = _place(g, pool_x[g], pool_v[g], pool_t[g], pool_ok[g])
+            nx, nv, nt, nok, (mv, cp) = res
+            for lst, t in zip(out, (nx, nv, nt, nok)):
+                lst.append(t)
+            out[4].append(torch.stack([ovf_move[g] + mv, ovf_cap[g] + cp,
+                                       ovf_buf[g]], dim=1))
+        return out
+
+    def _place(g, pool_x, pool_v, pool_t, pool_ok):
+        """The domains' new layout from their pools (Dg, ., P)."""
+        dev = pool_x.device
+        k = consts[g]
+        Dg, P = pool_ok.shape
+        if use_pull and P == Ml and kernel:
+            # no arrivals (no decomposed axis): the kernels place all
+            return _residents(g, pool_x, pool_v, pool_t, pool_ok, None)
+        cg = global_cell_index(pool_x, k)
+        loc = [cg[:, d] - (coords[g][a][:, None] * span[a]
+                           if mesh.shape[a] > 1 else 0)
+               for d, a in enumerate(("x", "y", "z"))]
+        inside = ((loc[0] >= 0) & (loc[0] < lx) & (loc[1] >= 0)
+                  & (loc[1] < ly) & (loc[2] >= 0) & (loc[2] < lz))
+        cid_all = (loc[2] * ly + loc[1]) * lx + loc[0]
+        gx = pool_x - k[1]
+        xs = torch.where(gx < 0, pool_x + k[0], pool_x)
+
+        def insert(new_x, new_v, new_t, new_ok, src, cid, base):
+            """Stable-sorted insertion of the pool entries `src` (a slice)
+            at cid (ncl = not placed), after `base` residents per cell."""
+            A = cid.shape[1]
+            order = torch.argsort(cid, dim=-1, stable=True)
+            scid = cid.gather(1, order)
+            starts = torch.searchsorted(scid, torch.arange(
+                ncl + 1, device=dev).expand(Dg, -1).contiguous())
+            rank = (torch.arange(A, device=dev)[None]
+                    - starts.gather(1, scid.clamp(0, ncl)))
+            slotr = rank if base is None else (
+                base.gather(1, scid.clamp(0, ncl - 1)) + rank)
+            placed = (scid < ncl) & (slotr < C)
+            cap = ((scid < ncl) & (slotr >= C)).sum(dim=-1)
+            dest = torch.where(placed, scid * C + slotr, Ml)
+
+            def put(t, vals, fill_axis):
+                spare = torch.cat([t, t.narrow(fill_axis, 0, 1)],
+                                  dim=fill_axis)
+                idx = dest if t.dim() == 2 else dest[:, None].expand(
+                    -1, 3, -1)
+                return spare.scatter(fill_axis, idx, vals).narrow(
+                    fill_axis, 0, Ml)
+
+            ox = order[:, None].expand(-1, 3, -1)
+            new_x = put(new_x, xs[..., src].gather(2, ox), 2)
+            new_v = put(new_v, pool_v[..., src].gather(2, ox), 2)
+            new_t = put(new_t, pool_t[:, src].gather(1, order), 1)
+            new_ok = put(new_ok, placed, 1)
+            return new_x, new_v, new_t, new_ok, cap.to(torch.int32)
+
+        if not use_pull:
+            # sort placement: arbitrary displacement (the --safe_exchange
+            # and small-grid fallback)
+            moved = (pool_ok & ~inside).sum(dim=-1).to(torch.int32)
+            cid = torch.where(pool_ok & inside, cid_all, ncl)
+            nx, nv, nt, nok, cap = insert(
+                sentinels[g],
+                torch.zeros((Dg, 3, Ml), dtype=pool_v.dtype, device=dev),
+                torch.zeros((Dg, Ml), dtype=torch.int32, device=dev),
+                torch.zeros((Dg, Ml), dtype=torch.bool, device=dev),
+                slice(0, P), cid, None)
+            # an unplaced pool entry left in the dropped column only
+            return nx, nv, nt, nok, (moved, cap)
+
+        return _residents(g, pool_x, pool_v, pool_t, pool_ok,
+                          (xs, inside, cid_all, insert))
+
+    def _residents(g, pool_x, pool_v, pool_t, pool_ok, arrivals):
+        """The pull of the residents (the first M_local pool entries,
+        still slot-structured), then the insertion of the arrivals."""
+        dev = pool_x.device
+        Dg, P = pool_ok.shape
+        k = consts[g]
+        res_ok = pool_ok[:, :Ml]
+        if kernel:
+            # the kernels read validity from the sentinels: the leavers'
+            # slots take them
+            x_in = torch.where(res_ok[:, None], pool_x[..., :Ml],
+                               sentinels[g])
+            v_in = pool_v[..., :Ml].contiguous()
+            t_in = pool_t[:, :Ml].contiguous()
+            parts = [placers[g](x_in[i], v_in[i], t_in[i], origins[g][i],
+                                groups[g][1][i] * Ml)
+                     for i in range(Dg)]
+        else:
+            parts = [place_residents(pool_x[i, :, :Ml], pool_v[i, :, :Ml],
+                                     pool_t[i, :Ml], res_ok[i], geom,
+                                     nb_local, origins[g][i], decomposed,
+                                     pads, sentinels[g][i], k=k)
+                     for i in range(Dg)]
+        new_x, new_v, new_t, counts = (torch.stack([p[i] for p in parts])
+                                       for i in range(4))
+        moved = torch.stack([p[4] for p in parts]).to(torch.int32)
+        cap = torch.stack([p[5] for p in parts]).to(torch.int32)
+        new_ok = (torch.arange(C, device=dev)[None, None]
+                  < counts[..., None]).reshape(Dg, Ml)
+        A = P - Ml
+        if A > 0:
+            # arrivals: exact insertion after each cell's pulled residents
+            # (the reference appends arrivals too, comm.cpp:552-575)
+            xs, inside, cid_all, insert = arrivals
+            a_live, a_in = pool_ok[:, Ml:], inside[:, Ml:]
+            moved = moved + (a_live & ~a_in).sum(dim=-1).to(torch.int32)
+            acid = torch.where(a_live & a_in, cid_all[:, Ml:], ncl)
+            new_x, new_v, new_t, new_ok, c2 = insert(
+                new_x, new_v, new_t, new_ok, slice(Ml, P), acid,
+                counts.long())
+            cap = cap + c2
+        return new_x, new_v, new_t, new_ok, (moved, cap)
+
+    if graph:
+        return graphed(exchange_rebin, router)
+    return exchange_rebin
+
+
+def graphed(fn, router: Router):
+    """fn(x, v, typ, valid) (lists of one CUDA group's tensors) as a CUDA
+    graph: captured on the first call (after one eager call on a side
+    stream, as torch.cuda.graph asks), replayed on the inputs copied into
+    its own; returns copies of the graph's outputs, so that the caller's
+    state never aliases them. The sharded rebin kernels' launch count goes
+    up by the launches each replay runs."""
+    from ..ops import rebin_cuda
+
+    if len(router.groups) != 1 or router.groups[0][0].type != "cuda":
+        raise ValueError("a graphed migration runs on one CUDA device")
+    box = {}
+
+    def run(*args):
+        if "graph" not in box:
+            box["inputs"] = [[t.clone() for t in a] for a in args]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*box["inputs"])
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            before = rebin_cuda.SHARDED_LAUNCHES
+            with torch.cuda.graph(g):
+                box["outputs"] = fn(*box["inputs"])
+            box["launches"] = rebin_cuda.SHARDED_LAUNCHES - before
+            box["graph"] = g
+        else:
+            rebin_cuda.SHARDED_LAUNCHES += box["launches"]
+        for dst, src in zip(box["inputs"], args):
+            for d, t in zip(dst, src):
+                d.copy_(t)
+        box["graph"].replay()
+        return tuple([t.clone() for t in out] for out in box["outputs"])
+
+    return run

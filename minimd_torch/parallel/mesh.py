@@ -1,0 +1,184 @@
+"""The mesh of a spatially decomposed run: the processor grid and the
+domains laid on it.
+
+The reference chooses its 3-D processor grid by minimizing subdomain
+surface area over all factorizations of nprocs (ref/comm.cpp:86-126);
+min_surface_grid is that choice, as minimd_tpu/parallel/mesh.py makes it.
+A domain owns one block of cells and lives on a torch.device; devices
+may repeat, so ["cuda:0"] * 8 runs a 2x2x2 decomposition on one card and
+["cpu"] * 8 is the tests' mesh. Domain k sits at mesh coordinate
+(iz, iy, ix) with k = (iz*py + iy)*px + ix, the order of the JAX
+package's Mesh('z', 'y', 'x') device array.
+
+The domains of one device form a group whose tensors are stacked on a
+leading domain axis, so that an elementwise step is one launch per
+device whatever the number of domains (`Mesh.groups`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+AXES = ("z", "y", "x")   # mesh axis order; grid axis 0 is z, 2 is x
+
+
+def min_surface_grid(nprocs: int, prd) -> tuple[int, int, int]:
+    """Factorize nprocs into (px, py, pz) minimizing subdomain surface
+    (comm.cpp:86-126)."""
+    prd = np.asarray(prd, dtype=float)
+    area = (prd[0] * prd[1], prd[0] * prd[2], prd[1] * prd[2])
+    best = None
+    best_surf = np.inf
+    for px in range(1, nprocs + 1):
+        if nprocs % px:
+            continue
+        rem = nprocs // px
+        for py in range(1, rem + 1):
+            if rem % py:
+                continue
+            pz = rem // py
+            surf = area[0] / px / py + area[1] / px / pz + area[2] / py / pz
+            if surf < best_surf:
+                best_surf = surf
+                best = (px, py, pz)
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """shape: {"z": pz, "y": py, "x": px}; devices: (pz, py, px) array of
+    torch.device, domain k at devices.flat[k]."""
+
+    shape: dict
+    devices: np.ndarray
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def coord(self, k: int) -> dict:
+        """{"z": iz, "y": iy, "x": ix} of domain k."""
+        iz, iy, ix = np.unravel_index(k, self.devices.shape)
+        return {"z": int(iz), "y": int(iy), "x": int(ix)}
+
+    def domain(self, c: dict) -> int:
+        return int(np.ravel_multi_index(
+            tuple(c[a] for a in AXES), self.devices.shape))
+
+    def ring(self, k: int, name: str, j: int) -> int:
+        """The domain j steps from k along mesh axis `name`, periodic."""
+        c = self.coord(k)
+        c[name] = (c[name] + j) % self.shape[name]
+        return self.domain(c)
+
+    @property
+    def decomposed(self) -> tuple[bool, bool, bool]:
+        """Per spatial axis (x, y, z): whether the mesh splits it."""
+        return tuple(self.shape[a] > 1 for a in ("x", "y", "z"))
+
+    @property
+    def groups(self) -> list[tuple[torch.device, list[int]]]:
+        """(device, its domains in domain order), devices in order of
+        first appearance. Concatenating the groups' stacked tensors gives
+        the domains in `order`."""
+        out: dict = {}
+        for k, dev in enumerate(self.devices.flat):
+            out.setdefault(dev, []).append(k)
+        return list(out.items())
+
+    @property
+    def order(self) -> list[int]:
+        """The domains in the order of the groups' concatenation."""
+        return [k for _, ks in self.groups for k in ks]
+
+
+def make_mesh(devices, prd, grid: tuple[int, int, int] | None = None) -> Mesh:
+    """A (pz, py, px) mesh over `devices` (anything torch.device takes),
+    shaped by the min-surface factorization unless `grid` = (px, py, pz)
+    is given."""
+    devs = [torch.device(d) for d in devices]
+    if torch.cuda.is_available():   # "cuda" and "cuda:0" are one device
+        devs = [torch.device("cuda", torch.cuda.current_device())
+                if d.type == "cuda" and d.index is None else d for d in devs]
+    n = len(devs)
+    if grid is None:
+        grid = min_surface_grid(n, prd)
+    px, py, pz = grid
+    if px * py * pz != n:
+        raise ValueError(f"mesh {grid} does not hold {n} domains")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devs
+    return Mesh(shape={"z": pz, "y": py, "x": px},
+                devices=arr.reshape(pz, py, px))
+
+
+class Router:
+    """Copies between the domains of a mesh, for tensors held per group
+    (a list, one tensor per `mesh.groups` entry, its dim 0 running over
+    the group's domains in domain order). The index tensors are built
+    once per route and kept on their devices, so a copy queues no
+    host-to-device transfer (which would wait on the card)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.groups = mesh.groups
+        self.pos = {k: p for p, k in enumerate(mesh.order)}
+        self._routes: dict = {}
+
+    def _index(self, src: tuple) -> list[torch.Tensor]:
+        if src not in self._routes:
+            self._routes[src] = [
+                torch.tensor([self.pos[src[k]] for k in ks], device=dev)
+                for dev, ks in self.groups]
+        return self._routes[src]
+
+    def full(self, parts, g: int) -> torch.Tensor:
+        """Every domain's entries, in `mesh.order`, on group g's device
+        (with one group: parts[0] itself, no copy)."""
+        if len(parts) == 1:
+            return parts[0]
+        dev = self.groups[g][0]
+        return torch.cat([p.to(dev, non_blocking=True) for p in parts])
+
+    def gather(self, parts, src) -> list[torch.Tensor]:
+        """Per group: entry i (domain k = group's i-th) is the entry of
+        domain src[k] of `parts`."""
+        idx = self._index(tuple(src))
+        return [self.full(parts, g).index_select(0, idx[g])
+                for g in range(len(self.groups))]
+
+    def ring(self, parts, name: str, j: int) -> list[torch.Tensor]:
+        """Per domain k: the entry of the domain j steps along mesh axis
+        `name` (what k receives when every domain sends to the one -j
+        steps from it)."""
+        return self.gather(parts, [self.mesh.ring(k, name, j)
+                                   for k in range(self.mesh.size)])
+
+    def split(self, parts) -> list[torch.Tensor]:
+        """Per domain, in domain order: its entry of `parts`."""
+        out = [None] * self.mesh.size
+        for (_, ks), p in zip(self.groups, parts):
+            for i, k in enumerate(ks):
+                out[k] = p[i]
+        return out
+
+    def stack(self, per_domain) -> list[torch.Tensor]:
+        """The inverse of split: per group, its domains' tensors stacked."""
+        return [torch.stack([per_domain[k].to(dev) for k in ks])
+                for dev, ks in self.groups]
+
+    def domain_sum(self, parts) -> torch.Tensor:
+        """The sum over every domain of `parts` (one value per domain),
+        reduced in domain order on the first group's device (the psum of
+        the JAX package's mesh)."""
+        if len(self.groups) == 1:   # the group's order is domain order
+            return parts[0].sum(dim=0)
+        if "sum" not in self._routes:
+            self._routes["sum"] = torch.tensor(
+                [self.pos[k] for k in range(self.mesh.size)],
+                device=self.groups[0][0])
+        full = self.full(parts, 0)
+        return full.index_select(0, self._routes["sum"]).sum(dim=0)

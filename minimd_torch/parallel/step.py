@@ -1,0 +1,373 @@
+"""The decomposed MD step: halo exchange, forces on each domain, and the
+LJ and EAM run loops (the counterpart of minimd_tpu/parallel/step.py).
+
+The reference's MPI machinery maps onto the domains of one process:
+
+  proc grid (min-surface factorization)  -> Mesh of domains [mesh.py]
+  borders/communicate (halo exchange)    -> copies of boundary cell
+                                            slabs, axis by axis (Halo)
+  MPI_Allreduce (thermo)                 -> a sum over the domains in
+                                            domain order (Router)
+  exchange (atom migration)              -> leaver buffers shipped
+                                            along the mesh rings, then a
+                                            local rebin [comm.py]
+
+make_exchanges gives the slab exchange as hooks of ops/pairgrid.py's
+to_padded_soa / pad_grid_int (the JAX package's _make_exchanges). A run
+does not call them every step: Halo applies them once per geometry to
+the slots' indices and to zeros, and each step's halo is then one gather
+of every domain's slots and one add of the image shifts (the exchange's
+own -prd / +prd, added as the hooks subtract them, so the bits agree).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..cells import CellGeometry
+from ..ops.pairgrid import _pad_halo
+from .mesh import AXES, Mesh, Router
+
+_AXIS_OF_GRID = {0: "z", 1: "y", 2: "x"}   # grid axis -> mesh axis name
+
+
+def local_grid_shape(geom: CellGeometry, mesh: Mesh) -> tuple[int, int, int]:
+    """Each domain's cells (lx, ly, lz); the grid must divide the mesh."""
+    nbx, nby, nbz = geom.nb
+    px, py, pz = mesh.shape["x"], mesh.shape["y"], mesh.shape["z"]
+    if nbx % px or nby % py or nbz % pz:
+        raise ValueError(f"cell grid {geom.nb} not divisible by mesh "
+                         f"{(px, py, pz)}")
+    return (nbx // px, nby // py, nbz // pz)
+
+
+def make_exchanges(mesh: Mesh, prd, h: int, nb_local):
+    """Per grid axis of a decomposed mesh axis, the halo exchange hook of
+    pairgrid._pad_halo: hook(grids, coord_dim) -> [(lo, hi), ...], grids
+    every domain's (partially padded) grid in domain order.
+
+    The h-cell halo of an axis of L cells per domain is stitched from
+    k = ceil(h/L) ring neighbors, one hop each (the reference's need[] > 1
+    swap plan, comm.cpp:150-180): hop j gives the lo halo the top s cells
+    of the domain j below and the hi halo the bottom s cells of the one j
+    above, s = min(L, h - (j-1)*L). Positions of the coordinate along the
+    axis are shifted by -prd (+prd) on the domains within j of the low
+    (high) end of the box; coord_dim None ships a scalar unshifted."""
+    lspan = {0: nb_local[2], 1: nb_local[1], 2: nb_local[0]}
+    exchanges = {}
+    for grid_axis, name in _AXIS_OF_GRID.items():
+        n = mesh.shape[name]
+        if n == 1:
+            continue   # the periodic self-wrap handles it
+        L = lspan[grid_axis]
+        k = -(-h // L)
+        if k > n:
+            raise ValueError(
+                f"a halo of {h} cells spans more than one full ring on mesh "
+                f"axis {name!r} (L={L}, n={n})")
+
+        def exchange(gs, coord_dim, *, name=name, n=n, k=k, L=L,
+                     grid_axis=grid_axis):
+            shift = coord_dim is not None and coord_dim == 2 - grid_axis
+            p = float(prd[coord_dim]) if shift else 0.0
+            out = []
+            for dom, g in enumerate(gs):
+                idx = mesh.coord(dom)[name]
+                lo_parts, hi_parts = [], []
+                for j in range(k, 0, -1):
+                    s = min(L, h - (j - 1) * L)
+                    part = gs[mesh.ring(dom, name, -j)].narrow(
+                        grid_axis, L - s, s).to(g.device)
+                    if shift and idx < j:
+                        part = part - p
+                    lo_parts.append(part)
+                    part = gs[mesh.ring(dom, name, j)].narrow(
+                        grid_axis, 0, s).to(g.device)
+                    if shift and idx >= n - j:
+                        part = part + p
+                    hi_parts.append(part)
+                out.append((torch.cat(lo_parts, dim=grid_axis),
+                            torch.cat(hi_parts[::-1], dim=grid_axis)))
+            return out
+
+        exchanges[grid_axis] = exchange
+    return exchanges
+
+
+class Halo:
+    """The halo of every domain, as one gather and one add per group.
+
+    wrap=True: every axis padded by h (exchanged where decomposed, the
+    periodic self-wrap elsewhere), the plain pair loops' padded grid.
+    wrap=False: only the decomposed axes padded, by h, the input of the
+    sharded CUDA pair kernels (which wrap the other axes themselves).
+    `shape` is the padded (Z, Y, X, C) and `nslots` its slot count."""
+
+    def __init__(self, geom: CellGeometry, mesh: Mesh, router: Router,
+                 h: int, nb_local, dtype, wrap: bool = True):
+        self.router = router
+        lx, ly, lz = nb_local
+        C = geom.capacity
+        Ml = lx * ly * lz * C
+        self.nlocal = Ml
+        ex = make_exchanges(mesh, geom.prd, h, nb_local)
+        pos = router.pos
+        ids = [(pos[k] * Ml + torch.arange(Ml, dtype=torch.int64)
+                ).reshape(lz, ly, lx, C) for k in range(mesh.size)]
+        idx = [g.reshape(-1) for g in _pad_halo(ids, h, 0.0, None, ex, wrap)]
+        zeros = [torch.zeros((lz, ly, lx, C), dtype=dtype)] * mesh.size
+        shift = [torch.stack([g.reshape(-1) for g in gs]) for gs in zip(
+            *(_pad_halo(zeros, h, float(geom.prd[d]), d, ex, wrap)
+              for d in range(3)))]
+        self.nslots = idx[0].numel()
+        # nothing to pad (one domain, or no decomposed axis, for the
+        # kernels): the positions are the domains' own
+        self.identity = not wrap and not ex
+        self.idx, self.idx3, self.shift = [], [], []
+        for dev, ks in router.groups:
+            i1 = torch.stack([idx[k] for k in ks])                # (Dg, Mp)
+            dom, slot = i1 // Ml, i1 % Ml
+            i3 = (dom[:, None] * 3 + torch.arange(3)[None, :, None]) * Ml \
+                + slot[:, None]                                   # (Dg,3,Mp)
+            self.idx.append(i1.reshape(-1).to(dev))
+            self.idx3.append(i3.reshape(-1).to(dev))
+            self.shift.append(torch.stack([shift[k] for k in ks]).to(dev))
+        dims = [(n + 2 * h) if (wrap or dec) else n for n, dec in
+                zip(nb_local, mesh.decomposed)]
+        self.shape = (dims[2], dims[1], dims[0], C)
+
+    def positions(self, xs):
+        """Per group (Dg, 3, nslots): the padded positions of its domains
+        from every domain's (D, 3, M_local) positions."""
+        if self.identity:
+            return list(xs)
+        return [self.router.full(xs, g).reshape(-1).take(i3).reshape(s.shape)
+                + s for g, (i3, s) in enumerate(zip(self.idx3, self.shift))]
+
+    def scalars(self, ts):
+        """Per group (Dg, nslots): a padded per-slot field (types, fp),
+        unshifted."""
+        if self.identity:
+            return list(ts)
+        return [self.router.full(ts, g).reshape(-1).take(i).reshape(
+            len(ks), self.nslots)
+                for g, (i, (_, ks)) in enumerate(zip(self.idx,
+                                                     self.router.groups))]
+
+
+def sharded_force_path(forcetype: int, *, cuda: bool, dtype, reach: int,
+                       uniform: bool = True) -> str:
+    """The force a decomposed run takes on a device: sim.force_path's
+    choice (the sharded forms of the LJ and EAM kernels for float32 and
+    stencil reach 1 on the card, LJ with type-uniform parameters; else
+    the plain grids), but the plain EAM grid where one device would take
+    the exact splines: the JAX package's sharded EAM has no exact-spline
+    form."""
+    from ..sim import force_path
+
+    path = force_path(forcetype, cuda=cuda, dtype=dtype, reach=reach,
+                      uniform=uniform)
+    return "eam_grid" if path == "eam" else path
+
+
+def make_domain_force(forcetype: int, geom: CellGeometry, model, mesh: Mesh,
+                      router: Router, nb_local, dtype):
+    """force(x, typ, evflag) -> (f, eng, vir), each a list per device
+    group: f (Dg, 3, M_local) the forces on the group's domains, eng and
+    vir (Dg,) their energy and virial partials (None without evflag).
+    model: LJParams or EAMTables. Each group takes sharded_force_path's
+    path for its device; a domain's forces equal, atom for atom, those of
+    the single-device force of the same path on the same cells."""
+    from ..config import FORCE_LJ
+    from ..ops.pairgrid import halo_extent
+
+    h = halo_extent(geom)
+    lx, ly, lz = nb_local
+    Ml = lx * ly * lz * geom.capacity
+    lj = forcetype == FORCE_LJ
+    uniform = not lj or model.uniform
+    paths = [sharded_force_path(forcetype, cuda=dev.type == "cuda",
+                                dtype=dtype, reach=h, uniform=uniform)
+             for dev, _ in router.groups]
+    # the plain loops' halo (h cells on every axis), the kernels' (one
+    # cell on the decomposed axes), each built only where a path reads it
+    halo = (Halo(geom, mesh, router, h, nb_local, dtype, wrap=True)
+            if not all(p.endswith("_cuda") for p in paths) else None)
+    kernel_halo = (Halo(geom, mesh, router, 1, nb_local, dtype, wrap=False)
+                   if any(p.endswith("_cuda") for p in paths) else None)
+    dec = mesh.decomposed
+
+    closures = []
+    for (dev, _), path in zip(router.groups, paths):
+        if path == "lj_cuda":
+            from ..ops.lj_cuda import make_lj_force_cuda
+            closures.append(make_lj_force_cuda(
+                geom, model, dtype, dev, nb_local=nb_local, decomposed=dec))
+        elif path == "eam_cuda":
+            from ..ops.eam_cuda import make_eam_pair_cuda, make_eam_rho_cuda
+            closures.append((
+                make_eam_rho_cuda(geom, model, dtype, dev, nb_local=nb_local,
+                                  decomposed=dec),
+                make_eam_pair_cuda(geom, model, dtype, dev,
+                                   nb_local=nb_local, decomposed=dec)))
+        elif path == "eam_grid":
+            from ..ops.eam_grid import make_eam_pair_grid, make_eam_rho_grid
+            closures.append((
+                make_eam_rho_grid(geom, model, dtype, dev, nb_local=nb_local,
+                                  padded=True),
+                make_eam_pair_grid(geom, model, dtype, dev,
+                                   nb_local=nb_local, padded=True)))
+        else:
+            closures.append(None)
+
+    def halo_of(path):
+        return kernel_halo if path.endswith("_cuda") else halo
+
+    def padded(x, cache):
+        """Per group, the padded positions of its path's halo."""
+        out = []
+        for g, path in enumerate(paths):
+            hl = halo_of(path)
+            if hl not in cache:
+                cache[hl] = hl.positions(x)
+            out.append(cache[hl][g])
+        return out
+
+    def grids(flat, hl):
+        """3 padded grids (or one, for a scalar field) of a flat row."""
+        if flat.dim() == 1:
+            return flat.reshape(hl.shape)
+        return [flat[d].reshape(hl.shape) for d in range(3)]
+
+    def lj_force(x, typ, evflag):
+        from ..ops.lj_grid import lj_pair_loop
+
+        X = padded(x, {})
+        Tp = halo.scalars(typ) if not uniform else None
+        fs, es, ws = [], [], []
+        for g, ((dev, ks), path) in enumerate(zip(router.groups, paths)):
+            f = torch.empty((len(ks), 3, Ml), dtype=dtype, device=dev)
+            e, w = [], []
+            if path == "lj_cuda":   # every domain of the device at once
+                _, ei, wi = closures[g][0 if evflag else 1](X[g], None,
+                                                           out=f)
+                fs.append(f)
+                es.append(ei if evflag else None)
+                ws.append(wi if evflag else None)
+                continue
+            for i in range(len(ks)):
+                fg, ei, wi = lj_pair_loop(
+                    grids(X[g][i], halo), None if uniform
+                    else grids(Tp[g][i], halo), geom, model, dtype, evflag,
+                    nb_local=nb_local)
+                f[i] = torch.stack([t.reshape(Ml) for t in fg])
+                e.append(ei)
+                w.append(wi)
+            fs.append(f)
+            es.append(torch.stack(e) if evflag else None)
+            ws.append(torch.stack(w) if evflag else None)
+        return fs, es, ws
+
+    def eam_force(x, typ, evflag):
+        del typ  # single-funcfl: every type pair shares the tables
+        from ..cells import is_valid
+
+        X = padded(x, {})
+        fps, emb = [], []
+        for g, ((dev, ks), path) in enumerate(zip(router.groups, paths)):
+            rho_pass = closures[g][0]
+            fp = torch.empty((len(ks), Ml), dtype=dtype, device=dev)
+            if path == "eam_cuda":   # every domain of the device at once
+                _, _, e = rho_pass(X[g], evflag, out=fp)
+            else:
+                e = []
+                for i in range(len(ks)):
+                    _, fp[i], ei = rho_pass(grids(X[g][i], halo),
+                                            is_valid(x[g][i]), evflag)
+                    e.append(ei)
+                e = torch.stack(e) if evflag else None
+            fps.append(fp)
+            emb.append(e)
+        # the fp halo between the passes (force_eam.cpp:851-887)
+        fpp = {hl: hl.scalars(fps) for hl in {halo_of(p) for p in paths}}
+        fs, es, ws = [], [], []
+        for g, ((dev, ks), path) in enumerate(zip(router.groups, paths)):
+            hl = halo_of(path)
+            pair_pass = closures[g][1]
+            f = torch.empty((len(ks), 3, Ml), dtype=dtype, device=dev)
+            if path == "eam_cuda":   # every domain of the device at once
+                _, p, w = pair_pass(X[g], fpp[hl][g], evflag, out=f)
+            else:
+                p, w = [], []
+                for i in range(len(ks)):
+                    f[i], pi, wi = pair_pass(grids(X[g][i], hl),
+                                             grids(fpp[hl][g][i], hl), evflag)
+                    p.append(pi)
+                    w.append(wi)
+                p, w = ((torch.stack(p), torch.stack(w)) if evflag
+                        else (None, None))
+            fs.append(f)
+            if evflag:
+                # eng_vdwl = 2*(sum F + 1/2 sum P) (force_eam.cpp:446)
+                es.append(2.0 * (emb[g] + 0.5 * p))
+                ws.append(w)
+        return fs, es, ws
+
+    return lj_force if lj else eam_force
+
+
+def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
+                     dt: float, dtforce: float, scales, natoms: int,
+                     neigh_every: int, nstat: int, dtype):
+    """run(state, ntimes, n0=0) -> (state, overflow, trace): the decomposed
+    run loop, the counterpart of make_sharded_lj_run /
+    make_sharded_eam_run, shaped as the port's Simulation._run: per step,
+    over the device groups, the first kick and the drift; on reneighbor
+    steps the migration; the halo and the force; the second kick. The
+    cadences key on global step numbers n0 + n (reneighbor every
+    neigh_every; energy and a thermo row on thermo steps and on the last
+    step). The rows come from the domains' energy, virial and sum v^2,
+    reduced in domain order. trace (ntimes, 3) and overflow (3,)
+    [movement, capacity, buffer] stay on the first group's device: the
+    caller syncs once. The state's x and v are updated in place, so a
+    caller that may replay passes a clone."""
+    tsc = mass * scales.t_scale
+    dev0 = router.groups[0][0]
+
+    def run(state, ntimes: int, n0: int = 0):
+        x, v, f, typ, valid = (list(getattr(state, k)) for k in
+                               ("x", "v", "f", "typ", "valid"))
+        G = len(x)
+        trace = torch.zeros((ntimes, 3), dtype=dtype, device=dev0)
+        ovf = [torch.zeros((len(ks), 3), dtype=torch.int32, device=d)
+               for d, ks in router.groups]
+        for n in range(ntimes):
+            gstep = n0 + n
+            for g in range(G):
+                v[g].add_(f[g], alpha=dtforce)
+                x[g].add_(v[g], alpha=dt)
+            if (gstep + 1) % neigh_every == 0:
+                x, v, typ, valid, o = exchange_rebin(x, v, typ, valid)
+                ovf = [a + b for a, b in zip(ovf, o)]
+            if nstat > 0:
+                ev = (gstep + 1) % nstat == 0 or n == ntimes - 1
+            else:
+                ev = n == ntimes - 1
+            f, eng, vir = force(x, typ, ev)
+            for g in range(G):
+                v[g].add_(f[g], alpha=dtforce)
+            if ev:
+                vsq = router.domain_sum([torch.sum(
+                    vg * vg, dim=(1, 2), dtype=torch.float64) for vg in v])
+                t = vsq * tsc
+                e = router.domain_sum(eng)
+                w = router.domain_sum(vir)
+                trace[n] = torch.stack([
+                    t, e * scales.e_scale / natoms,
+                    (t * scales.dof_boltz + w) * scales.p_scale]).to(dtype)
+        from ..state import ShardedState
+        return (ShardedState(x=x, v=v, f=f, typ=typ, valid=valid),
+                router.domain_sum(ovf), trace)
+
+    return run

@@ -87,3 +87,85 @@ def geometry_from_reference(g) -> CellGeometry:
         prd=tuple(float(p) for p in g.prd),
         offset=tuple(float(o) for o in g.offset),
     )
+
+
+@dataclasses.dataclass
+class ShardedState:
+    """The state of a decomposed run (minimd_torch/parallel): per device
+    group of the mesh (Mesh.groups), the group's domains stacked on a
+    leading axis, each domain a cell-major block of its own cells
+    (x, v, f (Dg, 3, M_local); typ, valid (Dg, M_local))."""
+
+    x: list
+    v: list
+    f: list
+    typ: list
+    valid: list
+
+    def clone(self) -> "ShardedState":
+        return ShardedState(*([t.clone() for t in getattr(self, k)]
+                              for k in ("x", "v", "f", "typ", "valid")))
+
+
+def _domain_blocks(mesh, nb):
+    """Per domain, in domain order, the (z, y, x) slices of its cells in
+    a global (nbz, nby, nbx) grid."""
+    lx, ly, lz = (nb[0] // mesh.shape["x"], nb[1] // mesh.shape["y"],
+                  nb[2] // mesh.shape["z"])
+    out = []
+    for k in range(mesh.size):
+        c = mesh.coord(k)
+        out.append((slice(c["z"] * lz, (c["z"] + 1) * lz),
+                    slice(c["y"] * ly, (c["y"] + 1) * ly),
+                    slice(c["x"] * lx, (c["x"] + 1) * lx)))
+    return out
+
+
+def sharded_from_grid(x, v, f, typ, valid, mesh, geom: CellGeometry,
+                      dtype=torch.float32) -> ShardedState:
+    """The per-domain state from global grid-shaped arrays, numpy or
+    torch: x, v, f (3, nbz, nby, nbx, C), typ, valid (nbz, nby, nbx, C),
+    as a JAX ShardedSimulation holds them (its `arrays`, read as numpy)
+    and as sharded_to_grid gives them back."""
+    blocks = _domain_blocks(mesh, geom.nb)
+    dt = {"x": dtype, "v": dtype, "f": dtype, "typ": torch.int32,
+          "valid": torch.bool}
+    out = {}
+    for name, a in (("x", x), ("v", v), ("f", f), ("typ", typ),
+                    ("valid", valid)):
+        a = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.array(a))
+        per = [(a[:, zs, ys, xs] if a.dim() == 5 else a[zs, ys, xs])
+               for zs, ys, xs in blocks]
+        out[name] = [torch.stack([per[k].reshape(
+            (3, -1) if a.dim() == 5 else (-1,)) for k in ks]).to(
+                device=dev, dtype=dt[name]).contiguous()
+            for dev, ks in mesh.groups]
+    return ShardedState(**out)
+
+
+def sharded_to_grid(state: ShardedState, mesh, geom: CellGeometry):
+    """The inverse of sharded_from_grid: (x, v, f, typ, valid) as numpy
+    grid-shaped arrays in the global cell layout."""
+    nbx, nby, nbz = geom.nb
+    C = geom.capacity
+    blocks = _domain_blocks(mesh, geom.nb)
+    lz, ly, lx = (blocks[0][0].stop - blocks[0][0].start,
+                  blocks[0][1].stop - blocks[0][1].start,
+                  blocks[0][2].stop - blocks[0][2].start)
+    out = []
+    for name in ("x", "v", "f", "typ", "valid"):
+        parts = getattr(state, name)
+        vec = parts[0].dim() == 3
+        first = parts[0].detach().cpu().numpy()
+        g = np.zeros(((3,) if vec else ()) + (nbz, nby, nbx, C), first.dtype)
+        for (dev, ks), p in zip(mesh.groups, parts):
+            p = p.detach().cpu().numpy()
+            for i, k in enumerate(ks):
+                zs, ys, xs = blocks[k]
+                if vec:
+                    g[:, zs, ys, xs] = p[i].reshape(3, lz, ly, lx, C)
+                else:
+                    g[zs, ys, xs] = p[i].reshape(lz, ly, lx, C)
+        out.append(g)
+    return tuple(out)
