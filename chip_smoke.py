@@ -87,7 +87,16 @@ Run from the root of a checkout. Phases, one line each:
    the 131k main paths on (2,2,2) with the sharded kernels' launches
    counted; rates of Simulation and a 1-domain ShardedSimulation in
    turns and of (2,2,2) on the card, with its host time per step, at
-   131k and 864k.
+   131k and 864k;
+13. the decomposed run's surface on this card: the CLI's `--devices 8
+   --timed -o 1` on both decks at 131k (rows against the one-device
+   run's, lost_atoms 0, the YAML's per-device statistics, t_force, t_comm
+   and t_neigh above 0 and within t_total, the sharded kernels
+   launched); the sharded half paths (LJ gn=1, LJ gn=0, EAM; plain torch
+   forces, the migration's sharded rebin) on (2,2,2) at 131k, rows
+   against the decomposed full path's and the one-device half path's,
+   rate and peak memory; their 4k/10000 f32 LJ gate; resume_sharded at
+   131k against the uninterrupted run; dryrun_multichip(8).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (inputs read once, outputs written once) over
@@ -100,8 +109,8 @@ pair, rebin or FMA-chain functions, so their library_ms is null;
 copy_add's is torch.add(x, 1.0, out=y).
 
 Prints a JSON line of the 9 ported kernels and the 4 sharded forms, the
-rates, the probes' pins and the half paths' numbers, the card line, and
-last {"ok": true,
+rates, the probes' pins, the half paths' and the decomposed surface's
+numbers, the card line, and last {"ok": true,
 "device": {...}}. Any failure raises: the exit code is then not 0 and no
 result line is printed.
 """
@@ -1177,7 +1186,7 @@ def half_path(label, deck, gn, full_rows, steps=100):
     if not ok:
         raise AssertionError(f"{label}: the half path failed its checks")
     return {"rate": rate, "force_ms": f_ms, "force_ev_ms": f_ev_ms,
-            "peak_gib": peak}
+            "peak_gib": peak, "rows": rows}
 
 
 def cli_phase(label, deck, argv, workdir):
@@ -1688,9 +1697,10 @@ def sharded_phases():
         f"{k}={v[0]:.5f}ms({v[1]})" for k, v in times.items()))
     for deck in ("lj", "eam"):
         sharded_gate(deck)
-    launches = {}
+    launches, sharded_rows = {}, {}
     for deck in ("lj", "eam"):
-        _, _, got = sharded_main_path(deck, 32, 100, ["cuda"] * 8)
+        _, sharded_rows[deck], got = sharded_main_path(deck, 32, 100,
+                                                       ["cuda"] * 8)
         launches.update(got)
     rates, host = {}, {}
     for deck in ("lj", "eam"):
@@ -1730,8 +1740,233 @@ def sharded_phases():
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"the sharded main paths launched no {missing}")
-    return kernels, rates, host
+    return kernels, rates, host, sharded_rows
 
+
+# ----------------------------------------------------------------------
+# the decomposed run's half paths and surface (phase 13)
+# ----------------------------------------------------------------------
+
+SHARDED_HALF = (("half-sharded-lj", "lj", True),
+                ("half-sharded-lj-gn0", "lj", False),
+                ("half-sharded-eam", "eam", True))
+
+
+def cli_sharded_phase(label, deck, one_rows, workdir):
+    """cli.main --devices 8 --timed -o 1 on a shipped deck at 131k (its 100
+    steps), the 8 domains on this card: the rows within the half phase's
+    tolerances of the one-device run's, lost_atoms 0 (audit and YAML),
+    the per-device statistics in the YAML, the three phase times above 0
+    and at most t_total together, and the sharded kernels launched in the
+    run. Returns its numbers."""
+    import contextlib
+    import io
+    import os
+
+    from minimd_torch import cli
+    from minimd_torch.output import lost_atom_check
+
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        reset_counters()
+        with contextlib.redirect_stdout(buf):
+            ssim, rows = cli.main(["-i", str(REPO / f"inputs/in.{deck}.miniMD"),
+                                   "--devices", "8", "--timed", "-o", "1"])
+        launches = {k: n for k, n in counters().items() if n}
+        out = buf.getvalue().splitlines()
+        path = next(ln for ln in out if ln.startswith("# YAML report: "))
+        text = (pathlib.Path(workdir) / path.split(": ", 1)[1]).read_text()
+    finally:
+        os.chdir(cwd)
+    perf = next(ln for ln in out if "PERF_SUMMARY" in ln
+                and not ln.startswith("#")).split()
+    t_total, t_force, t_neigh, t_comm = (float(perf[k]) for k in (4, 5, 6, 7))
+    lines = text.splitlines()
+    yaml_ok = ("lost_atoms: 0" in lines and "  mpi_processes: 8" in lines
+               and all(f"  {k}:" in lines for k in (
+                   "atoms_per_device", "swap_atoms_x_per_device",
+                   "time_comm_per_device", "time_neigh_intervals")))
+    need = (("lj_force_sharded",) if deck == "lj" else
+            ("eam_rho_sharded", "eam_force_sharded")) + ("rebin_sharded",)
+    d0 = _row_close(rows[0], one_rows[0])
+    d1 = _row_close(rows[1], one_rows[1], floor=1.0)
+    lost = lost_atom_check(ssim)
+    intervals = [tuple(round(t * 1e3, 3) for t in iv)
+                 for iv in ssim.interval_stamps]
+    ok = (perf[:4] == ["8", "1", "100", str(ssim.natoms)]
+          and min(t_force, t_neigh, t_comm) > 0
+          and t_force + t_neigh + t_comm <= t_total and yaml_ok
+          and lost == 0 and all(launches.get(k, 0) > 0 for k in need)
+          and [r[0] for r in rows] == [0, 100] == [r[0] for r in one_rows[:2]]
+          and d0 <= HALF_STEP0_RTOL[deck] and d1 <= HALF_STEPN_RTOL
+          and len(ssim.interval_stamps) == 5
+          and "# WARNING" not in buf.getvalue())
+    phase(label, f"--devices 8 --timed -o 1: mesh={ssim.mesh.shape} "
+          f"nb={ssim.geom.nb} C={ssim.geom.capacity} devices="
+          f"{sorted(set(ssim.devices))} t_total={t_total:.4f}s t_force="
+          f"{t_force:.4f}s t_comm={t_comm:.4f}s t_neigh={t_neigh:.4f}s "
+          f"per interval (force, comm, neigh) ms={intervals} "
+          f"perf={float(perf[9]) / 1e6:.3f} Matom-steps/s (timed, a sync at "
+          f"each stamp) rows={rows} one-device={one_rows[:2]} step0 max "
+          f"rel={d0:.3e} step100 max rel={d1:.3e} lost={lost} yaml ok="
+          f"{yaml_ok} launches={launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the decomposed CLI run failed its "
+                             "checks")
+    return {"t_total": t_total, "t_force": t_force, "t_comm": t_comm,
+            "t_neigh": t_neigh, "rate_timed": float(perf[9]) / 1e6,
+            "interval_ms": intervals, "launches": launches}
+
+
+def half_sharded_phase(label, deck, gn, sharded_rows, one_half):
+    """ShardedSimulation(half_neigh=True) on the deck at 131k, (2,2,2) on
+    this card, run(100) with the launches counted (the migration's
+    sharded rebin only: the half force is plain torch, as the JAX
+    package's sharded half path is XLA): rows against the decomposed full
+    path's and the one-device half path's, every atom kept, the rate
+    (after a warm run) and the peak memory. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+
+    inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim = ShardedSimulation.from_input(inp, devices=["cuda"] * 8,
+                                       half_neigh=True, ghost_newton=gn)
+    start = sim.state_.clone()
+    reset_counters()
+    trace = sim.run(100)
+    launches = {k: n for k, n in counters().items() if n}
+    wall = time.time() - t0
+    rows = sim.thermo_trace(trace)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the folds sum each slot's images in a fixed order: a repeat of the
+    # run gives the same bits
+    end = sim.state_
+    sim.state_ = start
+    repeat = bool(np.array_equal(sim.run(100), trace)) and all(
+        torch.equal(a, b) for a, b in zip(sim.state_.x, end.x))
+    _, ms, rate = timed_run(sim, 100)
+    d_full = [_row_close(rows[0], sharded_rows[0]),
+              _row_close(rows[1], sharded_rows[1], floor=1.0)]
+    d_one = [_row_close(rows[0], one_half[0]),
+             _row_close(rows[1], one_half[1], floor=1.0)]
+    kept = int(sim.state.valid.sum())
+    ok = (list(launches) == ["rebin_sharded"] and kept == sim.natoms
+          and bool(np.isfinite(trace).all()) and repeat
+          and [r[0] for r in rows] == [0, 100]
+          and max(d_full[0], d_one[0]) <= HALF_STEP0_RTOL[deck]
+          and max(d_full[1], d_one[1]) <= HALF_STEPN_RTOL)
+    phase(label, f"natoms={sim.natoms} mesh={sim.mesh.shape} nb="
+          f"{sim.geom.nb} local={sim.nb_local} C={sim.geom.capacity} "
+          f"gn={int(gn)} 100 steps in {wall:.1f}s (setup included) rows="
+          f"{rows} sharded full={sharded_rows[:2]} max rel step0/100="
+          f"{d_full[0]:.3e}/{d_full[1]:.3e}; one-device half={one_half[:2]}"
+          f" {d_one[0]:.3e}/{d_one[1]:.3e} launches={launches} atoms={kept}"
+          f" repeat bit for bit={repeat}; run(100) {ms:.1f}ms = {rate:.3f} Matom-steps/s; peak "
+          f"{peak:.2f}GiB -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the sharded half path failed its "
+                             "checks")
+    return {"rate": rate, "peak_gib": peak, "ms_100": ms}
+
+
+def sharded_half_gate(steps=10000):
+    """The 4k/steps f32 LJ gate of the sharded half path (gn=1) on (2,2,2)
+    of this card against tests/golden/4k.lj with the reference's
+    criterion (precision 4)."""
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+    from minimd_torch.validate import compare_traces, parse_golden
+
+    golden4k = parse_golden(REPO / "tests/golden/4k.lj")
+    inp = parse_deck(REPO / "inputs/in.lj.miniMD")
+    inp.nx = inp.ny = inp.nz = 10
+    t0 = time.time()
+    sim = ShardedSimulation.from_input(inp, devices=["cuda"] * 8,
+                                       half_neigh=True)
+    rows = sim.thermo_trace(sim.run(steps))
+    res = compare_traces(rows, golden4k.rows, natoms=4000, system="lj",
+                         precision=4)
+    kept = int(sim.state.valid.sum())
+    secs = time.time() - t0
+    phase("gate-sharded-half", f"LJ gn=1 mesh={sim.mesh.shape} nb="
+          f"{sim.geom.nb} C={sim.geom.capacity} {steps} steps in "
+          f"{secs:.1f}s: {res}; atoms={kept} last={rows[-1]}")
+    if not (res.passed and kept == 4000 and len(rows) == steps // 100 + 1):
+        raise AssertionError(f"4k/{steps} f32 sharded half LJ gate failed")
+    return {"passed": True, "seconds": secs, "result": str(res)}
+
+
+def resume_sharded_phase(workdir, steps=50):
+    """ShardedSimulation of the LJ deck at 131k on (2,2,2): save at step
+    `steps`, checkpoint.resume_sharded, `steps` more, against the
+    uninterrupted run (CHECKPOINT_RTOL), the step-0 row kept."""
+    from minimd_torch import checkpoint
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+
+    inp = parse_deck(REPO / "inputs/in.lj.miniMD")
+    sim = ShardedSimulation.from_input(inp, devices=["cuda"] * 8)
+    sim.run(steps)
+    path = pathlib.Path(workdir) / "ck_sharded.npz"
+    checkpoint.save(path, sim, step=steps)
+    orig = sim.thermo_trace(sim.run(steps))
+    res, step = checkpoint.resume_sharded(path, devices=["cuda"] * 8)
+    rows = res.thermo_trace(res.run(steps))
+    d = _row_close(rows[1], orig[1], floor=1.0)
+    ok = (step == steps and rows[0] == orig[0] == sim.row0
+          and d <= CHECKPOINT_RTOL and res.natoms == sim.natoms
+          and int(res.state.valid.sum()) == res.natoms)
+    phase("resume-sharded-131k", f"saved at step {step}, resume_sharded, "
+          f"{steps} steps: rows={rows} uninterrupted={orig} max rel="
+          f"{d:.3e} (tol {CHECKPOINT_RTOL:g}) row0 kept={rows[0] == orig[0]}"
+          f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("resume-sharded-131k: the resumed run failed "
+                             "its checks")
+    return d
+
+
+def sharded_surface_phases(full_rows, sharded_rows, half, workdir):
+    """Phase 13: the CLI's --devices 8 on both decks, the sharded half
+    paths at 131k, the sharded half 4k/10000 gate, resume_sharded and the
+    dryrun, on this card. Returns their numbers."""
+    import torch
+
+    from minimd_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.time()
+    out = {}
+    for deck in ("lj", "eam"):
+        out[f"cli_{deck}"] = cli_sharded_phase(f"cli-sharded-{deck}", deck,
+                                               full_rows[deck], workdir)
+    torch.cuda.empty_cache()
+    one = {"lj": "half-lj-131k", "lj-gn0": "half-lj-gn0-131k",
+           "eam": "half-eam-131k"}
+    for label, deck, gn in SHARDED_HALF:
+        key = deck if gn else "lj-gn0"
+        out[label] = half_sharded_phase(label, deck, gn, sharded_rows[deck],
+                                        half[one[key]]["rows"])
+        torch.cuda.empty_cache()
+    out["gate"] = sharded_half_gate()
+    out["resume_max_rel"] = resume_sharded_phase(workdir)
+    reset_counters()
+    dryrun_multichip(8)
+    launches = {k: n for k, n in counters().items() if n}
+    phase("dryrun", f"dryrun_multichip(8) on {torch.cuda.get_device_name(0)}"
+          f": launches={launches}")
+    if not (launches.get("lj_force_sharded", 0) > 0
+            and launches.get("rebin_sharded", 0) > 0):
+        raise AssertionError("dryrun: the sharded kernels did not run")
+    phase("sharded-surface-wall", f"phase 13 took {time.time() - t0:.1f}s")
+    return out
 
 
 def main():
@@ -2043,7 +2278,13 @@ def main():
         cli_envelope_phase(label, deck, argv, want, module)
 
     # 12. the decomposed run (minimd_torch/parallel) on this card's domains
-    sharded_kernels, sharded_rates_, sharded_host = sharded_phases()
+    sharded_kernels, sharded_rates_, sharded_host, sharded_rows = \
+        sharded_phases()
+
+    # 13. the decomposed run's half paths and surface on this card
+    with tempfile.TemporaryDirectory() as workdir:
+        surface = sharded_surface_phases(full_rows, sharded_rows, half,
+                                         workdir)
 
     def entry(name, source, replaces, t, key, **extra):
         k131, k864 = t["131k"], t["864k"]
@@ -2096,7 +2337,8 @@ def main():
                                          for k, t in eam_times.items()},
                       "idle_split": idle,
                       "sharded_matom_steps_per_s": sharded_rates_,
-                      "sharded_host_us_per_step": sharded_host}))
+                      "sharded_host_us_per_step": sharded_host,
+                      "sharded_surface": surface}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

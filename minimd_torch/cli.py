@@ -1,17 +1,20 @@
-"""Command-line entry point of the PyTorch/CUDA port (the single-device
-part of minimd_tpu.cli, ref/ljs.cpp:61-504).
+"""Command-line entry point of the PyTorch/CUDA port (minimd_tpu.cli,
+ref/ljs.cpp:61-504).
 
     python -m minimd_torch -i inputs/in.lj.miniMD [-s N] [-n steps]
-        [-p lj|eam] [--precision 1|2] [--device cuda|cpu]
+        [-p lj|eam] [--precision 1|2] [--device cuda|cpu] [--devices N]
         [--half_neigh 0|1] [-gn 0|1] [--timed] [--check_exchange]
-        [-o 1] [--yaml_screen] [--profile DIR]
+        [--safe_exchange] [-o 1] [--yaml_screen] [--profile DIR]
 
 Deck and override precedence are minimd_tpu.cli.load_input's (copied
 here). The port's `--device cuda|cpu` takes the place of the reference's
-`-d N` (a GPU id); `--backend` is refused, as the port has no backend
-switch (the tensors' device decides), and `--devices > 1` exits until the
-multi-device run is ported (ROADMAP queue 1 item 9). The reference's CPU
-execution knobs are accepted and do nothing.
+`-d N` (a GPU id). `--devices N` (N > 1) runs the decomposed run
+(minimd_torch/parallel, main_sharded) on N domains: with `--device cuda`
+on the visible cards in turn (cuda:i % count, so one card may hold all
+N), with `--device cpu` all on the CPU; this takes the place of the JAX
+CLI's "requested N devices, have M" error. `--backend` is refused, as the
+port has no backend switch (the tensors' device decides). The
+reference's CPU execution knobs are accepted and do nothing.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="minimd-torch",
         description=f"{VARIANT_STRING}: the PyTorch/CUDA port of miniMD-TPU "
-                    "(single device, LJ and EAM)")
+                    "(LJ and EAM, one device or a decomposed run)")
     p.add_argument("-i", "--input_file", default=None,
                    help="input deck (default: in.lj.miniMD)")
     p.add_argument("-n", "--nsteps", type=int, default=-1)
@@ -61,12 +64,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the run goes (the reference's -d N GPU id "
                         "has no counterpart)")
     p.add_argument("--devices", type=int, default=1,
-                   help="> 1: not ported yet (ROADMAP queue 1 item 9)")
+                   help="spatial decomposition over N domains (mesh by "
+                        "min-surface factorization): with --device cuda on "
+                        "the visible cards in turn (cuda:i %% count, so one "
+                        "card may hold all N), with --device cpu on the CPU")
+    p.add_argument("--safe_exchange", action="store_true",
+                   help="with --devices N: multi-hop atom migration (place "
+                        "atoms arriving from any domain, ref "
+                        "comm.cpp:599-689); migration is capacity-checked "
+                        "either way")
     p.add_argument("--backend", default=None,
                    help="refused: the port has no backend switch")
     p.add_argument("--timed", action="store_true",
-                   help="run with phase timers (force, neigh) and a card "
-                        "sync at every stamp; the same trajectory")
+                   help="run with phase timers (force, neigh, and comm with "
+                        "--devices N) and a card sync at every stamp; the "
+                        "same trajectory")
     p.add_argument("--check_exchange", action="store_true",
                    help="timed run that audits each interval's largest "
                         "displacement against skin/2")
@@ -74,9 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="capture a torch.profiler trace of the run (CUDA "
                         "activity on the card) into DIR as Chrome JSON")
     p.add_argument("--half_neigh", type=int, default=0,
-                   help="1 = Newton half-neighbor path, LJ + EAM (each pair "
-                        "evaluated once, j-side accumulation folded back; "
-                        "plain torch, a parity option); 0 = full stencils")
+                   help="1 = Newton half-neighbor path, LJ + EAM, also "
+                        "with --devices (each pair evaluated once, j-side "
+                        "accumulation folded back; plain torch, a parity "
+                        "option); 0 = full stencils")
     p.add_argument("-gn", "--ghost_newton", type=int, default=1,
                    help="with --half_neigh 1 (ljs.cpp:205-206): 1 = Newton's "
                         "3rd law across the periodic boundary, ghost forces "
@@ -99,8 +112,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> str | None:
-    if args.devices > 1:
-        return "--devices > 1 (ROADMAP queue 1 item 9)"
     if args.backend is not None:
         return ("--backend (ROADMAP queue 1 item 11: the port has no "
                 "backend switch; the tensors' device decides)")
@@ -132,10 +143,10 @@ def load_input(args) -> In:
     return inp
 
 
-def banner(inp, sim, args):
+def banner(inp, sim, args, device=None):
     print(f"# {VARIANT_STRING} output ...")
     print("# Run Settings: ")
-    print(f"\t# Device: {sim.device}")
+    print(f"\t# Device: {sim.device if device is None else device}")
     print(f"\t# Inputfile: {args.input_file or 'in.lj.miniMD'}")
     print(f"\t# Datafile: {inp.datafile or 'None'}")
     print("# Physics Settings: ")
@@ -184,6 +195,27 @@ def _notes(args, inp):
               "card the fold is a few slab adds, so gn=1 is the default.")
 
 
+def _profiler(args, cuda: bool):
+    """A torch.profiler context for --profile DIR (CUDA activity when the
+    run uses a card), else a null context."""
+    if not args.profile:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def _save_profile(args, prof):
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, "minimd_torch_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"# profiler trace: {path}")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     missing = _unported(args)
@@ -201,6 +233,8 @@ def main(argv=None):
     from .sim import Simulation
 
     dtype = torch.float32 if args.precision == 1 else torch.float64
+    if args.devices > 1:
+        return main_sharded(args, inp, dtype)
     nbins = (args.neigh_bins,) * 3 if args.neigh_bins > 0 else None
     print("# Create System:")
     sim = Simulation.from_input(inp, ntypes=args.ntypes, dtype=dtype,
@@ -215,14 +249,7 @@ def main(argv=None):
     print("# Timestep T U P Time")
     r0 = sim._row0
     print(f"{r0[0]} {r0[1]:e} {r0[2]:e} {r0[3]:e}  0.000")
-    prof = contextlib.nullcontext()
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if sim.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+    prof = _profiler(args, sim.device.type == "cuda")
     timer = Timer()
     timer.barrier_start(TIME_TOTAL)
     with prof:
@@ -231,11 +258,7 @@ def main(argv=None):
         else:
             trace = sim.run()    # ends in a host sync: the time is complete
     timer.barrier_stop(TIME_TOTAL)
-    if args.profile:
-        os.makedirs(args.profile, exist_ok=True)
-        path = os.path.join(args.profile, "minimd_torch_trace.json")
-        prof.export_chrome_trace(path)
-        print(f"# profiler trace: {path}")
+    _save_profile(args, prof)
 
     t = timer.array
     t_total = t[TIME_TOTAL]
@@ -260,6 +283,77 @@ def main(argv=None):
         path = yaml_report(sim, rows, timer, screen=args.yaml_screen)
         print(f"# YAML report: {path}")
     return sim, rows
+
+
+def main_sharded(args, inp, dtype):
+    """The decomposed run (minimd_torch/parallel; minimd_tpu/cli.py
+    main_sharded): the banner, the mesh and the domains' devices, the
+    step-0 row, --timed / --check_exchange through run_timed (COMM the
+    halo, NEIGH the migration), --profile, the lost-atom audit,
+    PERF_SUMMARY with the devices column and perf/device, and the YAML
+    report with the per-device statistics. Returns (ssim, rows)."""
+    from .output import lost_atom_check, per_device_statistics, yaml_report
+    from .parallel import ShardedSimulation, mesh_devices
+
+    try:
+        devices = mesh_devices(args.devices, args.device)
+    except RuntimeError as e:
+        sys.exit(f"ERROR: --device {args.device}: {e}")
+    print("# Create System (decomposed):")
+    nbins = (args.neigh_bins,) * 3 if args.neigh_bins > 0 else None
+    ssim = ShardedSimulation.from_input(
+        inp, devices=devices, dtype=dtype, nbins=nbins, ntypes=args.ntypes,
+        safe_exchange=args.safe_exchange, capacity=args.capacity,
+        half_neigh=args.half_neigh == 1,
+        ghost_newton=args.ghost_newton != 0)
+    print("# Done .... ")
+    groups = ", ".join(f"{dev} x{len(ks)}" for dev, ks in ssim.router.groups)
+    banner(inp, ssim, args, device=f"{args.devices} domains ({groups})")
+    print(f"# Mesh: {dict(ssim.mesh.shape)}")
+    print(f"# Domains' devices: {ssim.devices}")
+
+    print("# Starting dynamics ...")
+    print("# Timestep T U P Time")
+    r0 = ssim.row0
+    print(f"{r0[0]} {r0[1]:e} {r0[2]:e} {r0[3]:e}  0.000")
+    prof = _profiler(args, any(dev.type == "cuda"
+                               for dev, _ in ssim.router.groups))
+    timer = Timer()
+    timer.barrier_start(TIME_TOTAL)
+    with prof:
+        if args.timed or args.check_exchange:
+            trace = ssim.run_timed(timer, inp.ntimes,
+                                   check_exchange=args.check_exchange)
+        else:
+            trace = ssim.run(inp.ntimes)   # ends in a host sync
+    timer.barrier_stop(TIME_TOTAL)
+    _save_profile(args, prof)
+
+    t = timer.array
+    t_total = t[TIME_TOTAL]
+    rows = ssim.thermo_trace(trace)
+    for r in rows[1:]:
+        print(f"{r[0]} {r[1]:e} {r[2]:e} {r[3]:e} {t_total:6.3f}")
+    lost = lost_atom_check(ssim)
+    if lost:
+        print(f"# WARNING: {lost} atoms lost")
+
+    t_force, t_neigh, t_comm = t[TIME_FORCE], t[TIME_NEIGH], t[TIME_COMM]
+    t_other = max(t_total - t_force - t_neigh - t_comm, 0.0)
+    perf = ssim.natoms * inp.ntimes / t_total if t_total else 0.0
+    print("\n\n# Performance Summary:")
+    print("# devices OMP_threads nsteps natoms t_total t_force t_neigh "
+          "t_comm t_other performance perf/device grep_string t_extra")
+    print(f"{args.devices} 1 {inp.ntimes} {ssim.natoms} {t_total:f} "
+          f"{t_force:f} {t_neigh:f} {t_comm:f} {t_other:f} {perf:f} "
+          f"{perf / args.devices:f} PERF_SUMMARY 0.000000\n\n")
+
+    if args.yaml_output:
+        path = yaml_report(ssim, rows, timer, nprocs=args.devices,
+                           screen=args.yaml_screen,
+                           extra_stats=per_device_statistics(ssim))
+        print(f"# YAML report: {path}")
+    return ssim, rows
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Post-run reporting: the lost-atom audit, the YAML report and its run
-statistics (ref/output.cpp:48-547; a port of minimd_tpu/output.py's
-single-device part).
+statistics, and a decomposed run's per-device statistics
+(ref/output.cpp:48-547; a port of minimd_tpu/output.py).
 
 Two faults of the JAX package's module are not copied: its
 lost_atom_check counts valid slots without looking at the positions, and
 its run_statistics drops the neighbor statistics silently on any error.
 Here the audit is the reference's (positions inside the box), and a
-statistic that is skipped is named in the report with the reason.
+statistic that is skipped is named in the report with the reason. Each
+function takes a Simulation or a ShardedSimulation (whose `state` is the
+gathered state on the host).
 """
 
 from __future__ import annotations
@@ -100,24 +102,89 @@ def run_statistics(sim) -> dict:
     return stats
 
 
-def yaml_report(sim, rows, timer, *, screen=False) -> str:
+def per_device_statistics(ssim) -> dict:
+    """A decomposed run's per-domain distributions (the reference's
+    per-rank statistics, output.cpp:280-475), with the keys of the JAX
+    package's: the atoms each domain owns, its halo shell in cells, the
+    atoms in its h-wide boundary slabs per decomposed axis (what a halo
+    exchange ships to the two neighbors along that axis; an atom within h
+    of both faces counts in both, an undecomposed axis ships nothing),
+    and, after run_timed, the phase times."""
+    from .ops.pairgrid import halo_extent
+    from .state import sharded_to_grid
+
+    valid = sharded_to_grid(ssim.state_, ssim.mesh, ssim.geom)[4]
+    nbz, nby, nbx, C = valid.shape
+    pz, py, px = (ssim.mesh.shape["z"], ssim.mesh.shape["y"],
+                  ssim.mesh.shape["x"])
+    lz, ly, lx = nbz // pz, nby // py, nbx // px
+    blocks = valid.reshape(pz, lz, py, ly, px, lx, C)
+    nlocal = blocks.sum(axis=(1, 3, 5, 6)).reshape(-1)
+    h = halo_extent(ssim.geom)
+    shell_cells = ((lz + 2 * h) * (ly + 2 * h) * (lx + 2 * h)
+                   - lz * ly * lx)
+    occ = blocks.sum(axis=6)        # (pz, lz, py, ly, px, lx) atoms a cell
+    hz, hy, hx = min(h, lz), min(h, ly), min(h, lx)
+    zeros = np.zeros(pz * py * px, dtype=occ.dtype)
+    swaps = {
+        "z": ((occ[:, :hz].sum(axis=(1, 3, 5))
+               + occ[:, lz - hz:].sum(axis=(1, 3, 5))).reshape(-1)
+              if pz > 1 else zeros),
+        "y": ((occ[:, :, :, :hy].sum(axis=(1, 3, 5))
+               + occ[:, :, :, ly - hy:].sum(axis=(1, 3, 5))).reshape(-1)
+              if py > 1 else zeros),
+        "x": ((occ[..., :hx].sum(axis=(1, 3, 5))
+               + occ[..., lx - hx:].sum(axis=(1, 3, 5))).reshape(-1)
+              if px > 1 else zeros),
+    }
+    out = {
+        "atoms_per_device": _dist(nlocal),
+        "atoms_per_device_list": nlocal.tolist(),
+        "ghost_cells_per_device": shell_cells,
+        "halo_extent_cells": h,
+    }
+    for ax, sizes in swaps.items():
+        out[f"swap_atoms_{ax}_per_device"] = _dist(sizes)
+    if ssim.interval_stamps:
+        arr = np.asarray(ssim.interval_stamps, dtype=float)  # (intervals, 3)
+        for i, name in enumerate(("force", "comm", "neigh")):
+            out[f"time_{name}_per_device"] = _dist(
+                np.full(pz * py * px, float(arr[:, i].sum())))
+            out[f"time_{name}_intervals"] = _dist(arr[:, i])
+        out["time_per_device_note"] = (
+            "one process issues every domain's work in turn and each stamp "
+            "follows a sync of the mesh's cards, so a phase's time is the "
+            "same for every domain (the run's total); the interval "
+            "distributions carry the run's variance")
+        out["time_attribution_note"] = (
+            "measured stamps of run_timed: comm is the halo (with the fp "
+            "halo and the half paths' Newton folds), neigh the migration, "
+            "force the rest")
+    return out
+
+
+def yaml_report(sim, rows, timer, *, nprocs=1, screen=False,
+                extra_stats=None) -> str:
     """Write the YAML run report (output.cpp:105-493) to
-    miniMD-<date>-<time>.yaml in the working directory; returns its
-    path."""
+    miniMD-<date>-<time>.yaml in the working directory; returns its path.
+    nprocs: the domains of a decomposed run; extra_stats: more statistics
+    (per_device_statistics)."""
     inp = sim.inp
     t = timer.array
     t_total, t_force, t_neigh, t_comm = (t[TIME_TOTAL], t[TIME_FORCE],
                                          t[TIME_NEIGH], t[TIME_COMM])
     t_other = max(t_total - t_force - t_neigh - t_comm, 0.0)
-    device = (torch.cuda.get_device_name(sim.device)
-              if sim.device.type == "cuda" else "cpu")
+    devices = ([sim.device] if hasattr(sim, "device") else
+               [dev for dev, _ in sim.router.groups])
+    device = ", ".join(torch.cuda.get_device_name(d) if d.type == "cuda"
+                       else "cpu" for d in devices)
 
     lines = []
     a = lines.append
     a("run_configuration:")
     a(f"  variant: {VARIANT}")
     a(f"  device: {device}")
-    a("  mpi_processes: 1")
+    a(f"  mpi_processes: {nprocs}")
     a("  host_threads: 1")
     a(f"  inputfile: {getattr(inp, 'source', 'deck')}")
     a(f"  datafile: {inp.datafile or 'None'}")
@@ -164,10 +231,15 @@ def yaml_report(sim, rows, timer, *, screen=False) -> str:
         a(f"  atom_steps_per_second: {sim.natoms * inp.ntimes / t_total:.1f}")
     a("")
     a("statistics:")
-    for name, vals in run_statistics(sim).items():
-        a(f"  {name}:")
-        for k, vv in vals.items():
-            a(f"    {k}: {vv}")
+    stats = run_statistics(sim)
+    stats.update(extra_stats or {})
+    for name, vals in stats.items():
+        if isinstance(vals, dict):
+            a(f"  {name}:")
+            for k, vv in vals.items():
+                a(f"    {k}: {vv}")
+        else:
+            a(f"  {name}: {vals}")
     text = "\n".join(lines) + "\n"
 
     path = f"miniMD-{time.strftime('%Y%m%d-%H%M%S')}.yaml"

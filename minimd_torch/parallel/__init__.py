@@ -12,9 +12,11 @@ card, ["cpu"] * 8 the tests' mesh), and every exchange between domains is
 a tensor copy (a peer copy between cards). This is the JAX package's own
 model: one program over the mesh's devices.
 
-mesh.py  - min-surface processor grid, the domains and their copies
-step.py  - halo exchange, the forces on the domains, the run loop
-comm.py  - atom migration (leaver buffers along the rings, local rebin)
+mesh.py   - min-surface processor grid, the domains and their copies
+step.py   - halo exchange and its fold, the forces on the domains, the
+            run loop
+comm.py   - atom migration (leaver buffers along the rings, local rebin)
+dryrun.py - a two-step run with migration on a small mesh (dryrun_multichip)
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .mesh import Mesh, Router, make_mesh, min_surface_grid  # noqa: F401
+from .mesh import (Mesh, Router, make_mesh, mesh_devices,  # noqa: F401
+                   min_surface_grid)
 
 
 @dataclasses.dataclass
@@ -50,11 +53,21 @@ class ShardedSimulation:
     _rebuild: object = None
     # the migration buffers' capacity (None: one boundary cell layer)
     _buf_cap: object = None
+    # the Newton half-neighbor force (ghost_newton: the reference's -gn)
+    half_neigh: bool = False
+    ghost_newton: bool = True
+    # per reneighbor interval of run_timed, the (force, comm, neigh)
+    # seconds it stamped (output.per_device_statistics reads them)
+    interval_stamps: list = dataclasses.field(default_factory=list)
+    # run_timed(check_exchange=True): the positions after the last
+    # migration, per group
+    _xold: object = None
 
     @staticmethod
     def from_input(inp, devices=None, *, dtype=torch.float32, nbins=None,
                    safe_exchange=False, ntypes: int = 4,
-                   capacity: int | None = None,
+                   capacity: int | None = None, half_neigh: bool = False,
+                   ghost_newton: bool = True,
                    potential_path: str | None = None,
                    cell_chunk: int | None = None,
                    exchange_buf_cap: int | None = None):
@@ -65,22 +78,28 @@ class ShardedSimulation:
         return ShardedSimulation.from_arrays(
             inp, prd, x_np, v_np, typ_np, mass, devices=devices,
             dtype=dtype, nbins=nbins, safe_exchange=safe_exchange,
-            capacity=capacity, potential_path=potential_path,
+            capacity=capacity, half_neigh=half_neigh,
+            ghost_newton=ghost_newton, potential_path=potential_path,
             cell_chunk=cell_chunk, exchange_buf_cap=exchange_buf_cap)
 
     @staticmethod
     def from_arrays(inp, prd, x_np, v_np, typ_np, mass, *, devices=None,
                     dtype=torch.float32, nbins=None, safe_exchange=False,
                     capacity: int | None = None, row0=None,
+                    half_neigh: bool = False, ghost_newton: bool = True,
                     potential_path: str | None = None,
                     cell_chunk: int | None = None,
                     exchange_buf_cap: int | None = None):
         """A decomposed simulation from explicit state arrays. devices:
         one entry per domain (default: every visible CUDA card, one domain
         each; there is no CPU default, pass ["cpu"] * k for the CPU).
-        cell_chunk belongs to the single-device exact-spline EAM force
-        and is refused here. exchange_buf_cap pins the migration buffers
-        (grown and replayed on overflow, comm.cpp:887-909)."""
+        half_neigh: the Newton half-neighbor force on the domains, plain
+        torch on every device (ghost_newton=False is the reference's
+        -gn 0, LJ only; EAM always folds); the step-0 forces and row come
+        from the full-stencil force, as in the JAX package. cell_chunk
+        belongs to the single-device exact-spline EAM force and is
+        refused here. exchange_buf_cap pins the migration buffers (grown
+        and replayed on overflow, comm.cpp:887-909)."""
         if cell_chunk is not None:
             raise ValueError(
                 "cell_chunk applies to the single-device exact-spline EAM "
@@ -151,7 +170,9 @@ class ShardedSimulation:
             nb_local = local_grid_shape(geom, mesh)
             h = halo_extent(geom)
             force = make_domain_force(inp.forcetype, geom, model, mesh,
-                                      router, nb_local, dtype)
+                                      router, nb_local, dtype,
+                                      half_neigh=half_neigh,
+                                      ghost_newton=ghost_newton)
             kernel = (all(dev.type == "cuda" for dev, _ in router.groups)
                       and dtype == torch.float32 and hops == 1
                       and all(mesh.shape[a] > 1 or n >= 3 for a, n in
@@ -164,8 +185,11 @@ class ShardedSimulation:
                 force, ex, router, mass=mass, dt=inp.dt, dtforce=dtforce,
                 scales=scales, natoms=natoms, neigh_every=inp.neigh_every,
                 nstat=inp.thermo_nstat, dtype=dtype)
+            # the half paths start from the plain full-stencil force, as
+            # the JAX package's force0 takes its XLA grid with half_neigh
             path = sharded_force_path(
-                inp.forcetype, cuda=dev0.type == "cuda", dtype=dtype,
+                inp.forcetype, cuda=dev0.type == "cuda" and not half_neigh,
+                dtype=dtype,
                 reach=h, uniform=inp.forcetype != FORCE_LJ or model.uniform)
             if path == "lj_cuda":
                 from ..ops.lj_cuda import make_lj_force_cuda as make
@@ -191,17 +215,83 @@ class ShardedSimulation:
             inp=inp, geom=geom, mesh=mesh, router=router, run_fn=run_fn,
             natoms=natoms, scales=scales, mass=mass, state_=state,
             dtype=dtype, dtforce=dtforce, row0=row0, _rebuild=rebuild,
-            _buf_cap=exchange_buf_cap)
+            _buf_cap=exchange_buf_cap, half_neigh=half_neigh,
+            ghost_newton=ghost_newton)
 
     def run(self, ntimes: int, n0: int = 0) -> np.ndarray:
         """Run ntimes steps; returns the (ntimes, 3) T/U/P trace, rows on
         thermo steps and the last step, zero elsewhere. n0: the global
         step number of the first step (the cadences key on it). One host
         sync for the trace and the overflow counts together."""
+        return self._run(ntimes, n0)
+
+    def run_timed(self, timer, ntimes: int | None = None,
+                  check_exchange: bool = False) -> np.ndarray:
+        """run() with the reference's phase timers (integrate.cpp:101-192
+        on its MPI path), one reneighbor interval at a time: the same
+        steps in the same order, the thermo cadences on global step
+        numbers, so the rows equal run()'s bit for bit while nothing
+        overflows. The loop issues the halo, the forces and the migration
+        as separate calls, so it stamps them as they run, the mesh's
+        cards synchronized at each stamp: COMM the halo (with the fp halo
+        and the half paths' Newton folds), NEIGH the migration, FORCE the
+        rest. (The JAX package fuses them in one scan and replays the
+        halo and the migration to estimate the split.) Each interval's
+        (force, comm, neigh) seconds are appended to interval_stamps. An
+        overflow grows and replays that interval (run()'s rebuilds).
+
+        check_exchange: audit each interval's largest displacement against
+        skin/2, the bound that keeps the frozen cell assignment as good as
+        a cached Verlet list (the reference's --check_exchange,
+        integrate.cpp:112-151, as minimd_tpu adapts it); skipped for an
+        interval whose capacity regrow re-laid the slots."""
+        from ..timer import TIME_COMM, TIME_FORCE, TIME_NEIGH
+
+        ntimes = self.inp.ntimes if ntimes is None else ntimes
+        every = self.inp.neigh_every
+        keys = (TIME_FORCE, TIME_COMM, TIME_NEIGH)
+        audit = None
+        if check_exchange:
+            self._xold = [t.clone() for t in self.state_.x]
+            audit = self._audit_displacement
+        parts, n = [], 0
+        while n < ntimes:
+            chunk = min(every, ntimes - n)
+            was = [timer.array[k] for k in keys]
+            parts.append(self._run(chunk, n, end=ntimes - 1, timer=timer,
+                                   audit=audit))
+            self.interval_stamps.append(tuple(
+                timer.array[k] - w for k, w in zip(keys, was)))
+            if check_exchange:
+                self._xold = [t.clone() for t in self.state_.x]
+            n += chunk
+        return np.concatenate(parts) if parts else np.zeros((0, 3))
+
+    def _audit_displacement(self, x):
+        """Warn when an atom moved more than skin/2 since the last
+        migration (x: per group, the positions just before this one)."""
+        from ..cells import is_valid
+
+        if self._xold is None:
+            return None
+        skin_half = 0.5 * (self.inp.neigh_cut - self.inp.force_cut)
+        d = max(float(torch.where(
+            (is_valid(a.transpose(0, 1)) & is_valid(b.transpose(0, 1)))
+            [:, None], (a - b).abs(), 0.0).max()) for a, b in
+                zip(x, self._xold))
+        if d > skin_half:
+            print(f"Warning: max per-interval displacement {d:.4f} exceeds "
+                  f"skin/2 = {skin_half:.4f}; pairs may be missed - increase "
+                  "the reneighboring frequency or the skin "
+                  "(integrate.cpp:112-151 analog)")
+        return d
+
+    def _run(self, ntimes, n0=0, end=None, timer=None, audit=None):
         from ..cells import MAX_CAPACITY, next_capacity
 
         before = self.state_
-        state, ovf, trace = self.run_fn(before.clone(), ntimes, n0)
+        state, ovf, trace = self.run_fn(before.clone(), ntimes, n0, end=end,
+                                        timer=timer, audit=audit)
         host = torch.cat([trace.double().reshape(-1),
                           ovf.to(device=trace.device,
                                  dtype=torch.float64)]).cpu().numpy()
@@ -215,7 +305,8 @@ class ShardedSimulation:
             print(f"# resize: cell capacity {self.geom.capacity} -> "
                   f"{newcap} (migration overflow), replaying interval")
             self._regrow(before, newcap)
-            return self.run(ntimes, n0)
+            self._xold = None        # the slots were laid out anew
+            return self._run(ntimes, n0, end, timer, audit)
         if ovf_buf > 0:
             lx, ly, lz = self.nb_local
             C = self.geom.capacity
@@ -228,7 +319,7 @@ class ShardedSimulation:
                       "slots (buffer overflow), replaying interval")
                 self._buf_cap = newbuf
                 self.run_fn, _ = self._rebuild(self.geom, newbuf)
-                return self.run(ntimes, n0)
+                return self._run(ntimes, n0, end, timer, audit)
             raise RuntimeError(
                 f"migration buffer overflow: {ovf_buf} leaver(s) did not "
                 f"fit the exchange buffer ({base} slots); the system is "
@@ -246,6 +337,11 @@ class ShardedSimulation:
                 "larger capacity")
         self.state_ = state
         return trace_np
+
+    @property
+    def devices(self) -> list[str]:
+        """Each domain's device, in domain order."""
+        return [str(d) for d in self.mesh.devices.flat]
 
     @property
     def nb_local(self):

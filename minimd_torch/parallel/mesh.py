@@ -95,6 +95,22 @@ class Mesh:
         return [k for _, ks in self.groups for k in ks]
 
 
+def mesh_devices(n: int, device: str = "cuda") -> list[str]:
+    """The devices of n domains: "cuda" places them on the visible cards
+    in turn (cuda:i % count, so one card may hold them all), "cpu" all on
+    the CPU. Raises without a card for "cuda", never falling back to the
+    CPU."""
+    if device == "cpu":
+        return ["cpu"] * n
+    if device != "cuda":
+        raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is visible; pass device 'cpu' for "
+                           "the CPU")
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(n)]
+
+
 def make_mesh(devices, prd, grid: tuple[int, int, int] | None = None) -> Mesh:
     """A (pz, py, px) mesh over `devices` (anything torch.device takes),
     shaped by the min-surface factorization unless `grid` = (px, py, pz)

@@ -22,11 +22,14 @@ own -prd / +prd, added as the hooks subtract them, so the bits agree).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..cells import CellGeometry
 from ..ops.pairgrid import _pad_halo
+from ..timer import TIME_COMM, TIME_FORCE, TIME_NEIGH
 from .mesh import AXES, Mesh, Router
 
 _AXIS_OF_GRID = {0: "z", 1: "y", 2: "x"}   # grid axis -> mesh axis name
@@ -95,6 +98,22 @@ def make_exchanges(mesh: Mesh, prd, h: int, nb_local):
     return exchanges
 
 
+def _comm(method):
+    """A Halo method that a timed run stamps as COMM (the reference's
+    communicate and reverse_communicate): with `stamp` set, the time up to
+    the call is closed as FORCE and the call's own as COMM, each stamp
+    after a sync of the mesh's cards."""
+    @functools.wraps(method)
+    def timed(self, *args):
+        if self.stamp is None:
+            return method(self, *args)
+        self.stamp(TIME_FORCE)
+        out = method(self, *args)
+        self.stamp(TIME_COMM)
+        return out
+    return timed
+
+
 class Halo:
     """The halo of every domain, as one gather and one add per group.
 
@@ -102,11 +121,18 @@ class Halo:
     periodic self-wrap elsewhere), the plain pair loops' padded grid.
     wrap=False: only the decomposed axes padded, by h, the input of the
     sharded CUDA pair kernels (which wrap the other axes themselves).
-    `shape` is the padded (Z, Y, X, C) and `nslots` its slot count."""
+    `shape` is the padded (Z, Y, X, C) and `nslots` its slot count; fold
+    is the adjoint of the fill, for the half-neighbor paths' Newton folds.
+    `stamp` is set by a timed run (make_sharded_run)."""
+
+    stamp = None
 
     def __init__(self, geom: CellGeometry, mesh: Mesh, router: Router,
                  h: int, nb_local, dtype, wrap: bool = True):
         self.router = router
+        self.groups = router.groups
+        self._tables = {}
+        self.decomposed = mesh.decomposed
         lx, ly, lz = nb_local
         C = geom.capacity
         Ml = lx * ly * lz * C
@@ -137,6 +163,7 @@ class Halo:
                 zip(nb_local, mesh.decomposed)]
         self.shape = (dims[2], dims[1], dims[0], C)
 
+    @_comm
     def positions(self, xs):
         """Per group (Dg, 3, nslots): the padded positions of its domains
         from every domain's (D, 3, M_local) positions."""
@@ -145,6 +172,7 @@ class Halo:
         return [self.router.full(xs, g).reshape(-1).take(i3).reshape(s.shape)
                 + s for g, (i3, s) in enumerate(zip(self.idx3, self.shift))]
 
+    @_comm
     def scalars(self, ts):
         """Per group (Dg, nslots): a padded per-slot field (types, fp),
         unshifted."""
@@ -154,6 +182,56 @@ class Halo:
             len(ks), self.nslots)
                 for g, (i, (_, ks)) in enumerate(zip(self.idx,
                                                      self.router.groups))]
+
+    @_comm
+    def fold(self, parts):
+        """The adjoint of positions and scalars: per group (Dg, [3,]
+        M_local), every padded slot's value of parts (per group (Dg, [3,]
+        nslots)) added onto the slot it is an image of, in the domain that
+        owns it (an interior slot onto itself). This is the reference's
+        reverse communication (comm.cpp:320-361): the JAX package's fold
+        hooks on decomposed axes and its periodic self-fold elsewhere, in
+        one gather per group. Each slot sums its images in the order of
+        their padded positions (fold_table), where the JAX folds add slab
+        by slab, so the results agree to summation order; the order is
+        fixed, so a run repeats bit for bit on the card (where index_add_
+        would add with atomics). A mesh of several groups sums the groups'
+        parts in group order on the first one's device."""
+        vec = parts[0].dim() == 3
+        D, Ml = self.router.mesh.size, self.nlocal
+        total = None
+        for g, p in enumerate(parts):
+            flat = (p.transpose(0, 1).reshape(3, -1) if vec
+                    else p.reshape(1, -1))
+            flat = torch.cat([flat, flat.new_zeros((len(flat), 1))], dim=1)
+            acc = flat[:, self.fold_table(g)].sum(dim=1)   # (c, D * Ml)
+            acc = acc.reshape(-1, D, Ml).transpose(0, 1)
+            total = acc if total is None else total + acc.to(total.device)
+        out, start = [], 0
+        for dev, ks in self.groups:
+            part = total[start:start + len(ks)]
+            out.append((part if vec else part[:, 0]).to(dev))
+            start += len(ks)
+        return out
+
+    def fold_table(self, g: int) -> torch.Tensor:
+        """(K, D * M_local) on group g's device, built once: for each slot
+        of every domain (in mesh.order), the positions in group g's
+        flattened padded field (Dg * nslots) that are images of it, in
+        increasing order, and after them the position one past the end
+        (a zero)."""
+        if g not in self._tables:
+            i = self.idx[g].cpu()
+            n = i.numel()
+            order = torch.argsort(i, stable=True)
+            ts = i[order]
+            rank = torch.arange(n) - torch.searchsorted(ts, ts)
+            table = torch.full((int(rank.max()) + 1,
+                                self.router.mesh.size * self.nlocal), n,
+                               dtype=torch.int64)
+            table[rank, ts] = order
+            self._tables[g] = table.to(self.groups[g][0])
+        return self._tables[g]
 
 
 def sharded_force_path(forcetype: int, *, cuda: bool, dtype, reach: int,
@@ -172,13 +250,22 @@ def sharded_force_path(forcetype: int, *, cuda: bool, dtype, reach: int,
 
 
 def make_domain_force(forcetype: int, geom: CellGeometry, model, mesh: Mesh,
-                      router: Router, nb_local, dtype):
+                      router: Router, nb_local, dtype,
+                      half_neigh: bool = False, ghost_newton: bool = True):
     """force(x, typ, evflag) -> (f, eng, vir), each a list per device
     group: f (Dg, 3, M_local) the forces on the group's domains, eng and
-    vir (Dg,) their energy and virial partials (None without evflag).
-    model: LJParams or EAMTables. Each group takes sharded_force_path's
-    path for its device; a domain's forces equal, atom for atom, those of
-    the single-device force of the same path on the same cells."""
+    vir (Dg,) their energy and virial partials (None or zeros without
+    evflag). model: LJParams or EAMTables. Each group takes
+    sharded_force_path's path for its device; a domain's forces equal,
+    atom for atom, those of the single-device force of the same path on
+    the same cells. `force.halos` lists the Halo objects it reads.
+
+    half_neigh: the Newton half-neighbor paths (ops/lj_half.py with both
+    ghost_newton variants, ops/eam_half.py, which keeps the fold whatever
+    ghost_newton says) on the mesh's halo and its fold, each group's
+    domains in one batch. Plain torch on every device: the JAX package's
+    sharded half paths are XLA only (minimd_tpu/parallel/step.py:265,438),
+    so no sharded kernel runs there."""
     from ..config import FORCE_LJ
     from ..ops.pairgrid import halo_extent
 
@@ -186,6 +273,26 @@ def make_domain_force(forcetype: int, geom: CellGeometry, model, mesh: Mesh,
     lx, ly, lz = nb_local
     Ml = lx * ly * lz * geom.capacity
     lj = forcetype == FORCE_LJ
+    if half_neigh:
+        halo = Halo(geom, mesh, router, h, nb_local, dtype, wrap=True)
+        if ghost_newton or not lj:       # the fold's tables, at set-up
+            for g in range(len(router.groups)):
+                halo.fold_table(g)
+        if lj:
+            from ..ops.lj_half import make_lj_force_half
+            ev, noev = make_lj_force_half(geom, model, dtype,
+                                          ghost_newton=ghost_newton,
+                                          nb_local=nb_local, halo=halo)
+        else:
+            from ..ops.eam_half import make_eam_force_half
+            ev, noev = make_eam_force_half(geom, model, dtype,
+                                           nb_local=nb_local, halo=halo)
+
+        def half_force(x, typ, evflag):
+            return (ev if evflag else noev)(x, typ)
+
+        half_force.halos = [halo]
+        return half_force
     uniform = not lj or model.uniform
     paths = [sharded_force_path(forcetype, cuda=dev.type == "cuda",
                                 dtype=dtype, reach=h, uniform=uniform)
@@ -314,28 +421,59 @@ def make_domain_force(forcetype: int, geom: CellGeometry, model, mesh: Mesh,
                 ws.append(w)
         return fs, es, ws
 
-    return lj_force if lj else eam_force
+    force = lj_force if lj else eam_force
+    force.halos = [hl for hl in (halo, kernel_halo) if hl is not None]
+    return force
 
 
 def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
                      dt: float, dtforce: float, scales, natoms: int,
                      neigh_every: int, nstat: int, dtype):
-    """run(state, ntimes, n0=0) -> (state, overflow, trace): the decomposed
-    run loop, the counterpart of make_sharded_lj_run /
-    make_sharded_eam_run, shaped as the port's Simulation._run: per step,
-    over the device groups, the first kick and the drift; on reneighbor
-    steps the migration; the halo and the force; the second kick. The
-    cadences key on global step numbers n0 + n (reneighbor every
-    neigh_every; energy and a thermo row on thermo steps and on the last
-    step). The rows come from the domains' energy, virial and sum v^2,
-    reduced in domain order. trace (ntimes, 3) and overflow (3,)
-    [movement, capacity, buffer] stay on the first group's device: the
-    caller syncs once. The state's x and v are updated in place, so a
-    caller that may replay passes a clone."""
+    """run(state, ntimes, n0=0, end=None, timer=None, audit=None) ->
+    (state, overflow, trace): the decomposed run loop, the counterpart of
+    make_sharded_lj_run / make_sharded_eam_run, shaped as the port's
+    Simulation._run: per step, over the device groups, the first kick and
+    the drift; on reneighbor steps the migration; the halo and the force;
+    the second kick. The cadences key on global step numbers n0 + n
+    (reneighbor every neigh_every; energy and a thermo row on thermo
+    steps and on step `end`, by default the last of this call). The rows
+    come from the domains' energy, virial and sum v^2, reduced in domain
+    order. trace (ntimes, 3) and overflow (3,) [movement, capacity,
+    buffer] stay on the first group's device: the caller syncs once. The
+    state's x and v are updated in place, so a caller that may replay
+    passes a clone.
+
+    timer: the phase timers of a timed run (the reference's
+    integrate.cpp:101-192 stamps): the mesh's cards synchronized at every
+    stamp, COMM the halo (and the half paths' folds), NEIGH the
+    migration, FORCE the rest; the steps are run()'s, so are the bits.
+    audit(x): called with the positions just before each migration."""
     tsc = mass * scales.t_scale
     dev0 = router.groups[0][0]
+    cards = [d for d, _ in router.groups if d.type == "cuda"]
 
-    def run(state, ntimes: int, n0: int = 0):
+    def run(state, ntimes: int, n0: int = 0, end: int | None = None,
+            timer=None, audit=None):
+        end = n0 + ntimes - 1 if end is None else end
+        stamp = None
+        if timer is not None:
+            def stamp(which=None):
+                for d in cards:
+                    torch.cuda.synchronize(d)
+                timer.stamp(which)
+            stamp()
+        for hl in force.halos:
+            hl.stamp = stamp
+        try:
+            out = loop(state, ntimes, n0, end, stamp, audit)
+        finally:
+            for hl in force.halos:
+                hl.stamp = None
+        if stamp is not None:
+            stamp(TIME_FORCE)
+        return out
+
+    def loop(state, ntimes, n0, end, stamp, audit):
         x, v, f, typ, valid = (list(getattr(state, k)) for k in
                                ("x", "v", "f", "typ", "valid"))
         G = len(x)
@@ -348,12 +486,18 @@ def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
                 v[g].add_(f[g], alpha=dtforce)
                 x[g].add_(v[g], alpha=dt)
             if (gstep + 1) % neigh_every == 0:
+                if audit is not None:
+                    audit(x)
+                if stamp is not None:
+                    stamp(TIME_FORCE)
                 x, v, typ, valid, o = exchange_rebin(x, v, typ, valid)
                 ovf = [a + b for a, b in zip(ovf, o)]
+                if stamp is not None:
+                    stamp(TIME_NEIGH)
             if nstat > 0:
-                ev = (gstep + 1) % nstat == 0 or n == ntimes - 1
+                ev = (gstep + 1) % nstat == 0 or gstep == end
             else:
-                ev = n == ntimes - 1
+                ev = gstep == end
             f, eng, vir = force(x, typ, ev)
             for g in range(G):
                 v[g].add_(f[g], alpha=dtforce)

@@ -59,6 +59,13 @@
         polynomial and the gather-table kernels (131k and 864k run(100)).
         The outputs must hash alike across all four processes.
 
+    python scripts/torch_checks.py sharded-rate [--repo DIR] [--runs 5]
+        the decomposed full-neighbor run of PR 9's phase 12: ShardedSimulation
+        on a (2,2,2) mesh of this card's domains, the LJ and the EAM deck at
+        131,072 atoms (f32), `runs` timed run(100)s each (CUDA events, after
+        a warm run). --repo as for eam-rate, so that one call can run
+        parent and change in turns.
+
 Every line is printed as "[name] ..." and the last line is a JSON object
 of the numbers.
 """
@@ -213,6 +220,29 @@ def glue(steps=(200, 100)):
         print(f"[timed-{deck}-131k] t_total={t_total:.4f}s t_force="
               f"{t_force:.4f}s t_neigh={t_neigh:.4f}s", flush=True)
         out[deck]["timed_s"] = (t_total, t_force, t_neigh)
+    return out
+
+
+def sharded_rate(runs=5, steps=100):
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import timed_run
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+
+    out = {}
+    for deck in ("lj", "eam"):
+        inp = parse_deck(HERE / f"inputs/in.{deck}.miniMD")
+        sim = ShardedSimulation.from_input(inp, devices=["cuda"] * 8)
+        rates = [timed_run(sim, steps)[2] for _ in range(runs)]
+        print(f"[sharded-rate] {deck} 131k mesh={sim.mesh.shape} nb="
+              f"{sim.geom.nb} C={sim.geom.capacity}: median "
+              f"{statistics.median(rates):.3f} Matom-steps/s of "
+              + " ".join(f"{r:.3f}" for r in rates), flush=True)
+        out[f"{deck}_131k"] = rates
+        del sim
+        torch.cuda.empty_cache()
     return out
 
 
@@ -434,11 +464,11 @@ def lj_parity(repo, runs):
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("what", choices=["gates-f64", "half-memory", "eam-rate",
-                                    "glue", "lj-parity"])
+                                    "glue", "lj-parity", "sharded-rate"])
     p.add_argument("--repo", default=None,
-                   help="eam-rate, glue, lj-parity: import minimd_torch "
-                   "from this checkout (lj-parity: the one the change is "
-                   "held against)")
+                   help="eam-rate, glue, lj-parity, sharded-rate: import "
+                   "minimd_torch from this checkout (lj-parity: the one the "
+                   "change is held against)")
     p.add_argument("--worker", action="store_true",
                    help="lj-parity: one process of the four")
     p.add_argument("--runs", type=int, default=None)
@@ -469,6 +499,8 @@ def main():
         got = eam_rate(args.runs or 10)
     elif args.what == "glue":
         got = glue()
+    elif args.what == "sharded-rate":
+        got = sharded_rate(args.runs or 5)
     else:
         got = lj_parity_worker(args.runs or 5)
     print(json.dumps({args.what: got, "repo": str(args.repo or HERE)}))

@@ -218,9 +218,20 @@ def test_cli_runs_eam_deck(capsys):
                                   ["--backend", "xla"],
                                   ["--backend", "pallas", "-o", "1"]])
 def test_cli_refuses_unported_flags(argv, capsys):
-    """Multi-device (ROADMAP queue 1 item 9) and the JAX CLI's --backend
-    (item 11: the port has no backend switch) exit with the item named;
-    the rest of the single-device surface is ported (test_torch_cli.py)."""
+    """The JAX CLI's --backend (ROADMAP queue 1 item 11: the port has no
+    backend switch) exits with the item named. --devices N, refused until
+    the decomposed run was ported, now runs: here on N CPU domains, 10
+    steps, with its PERF_SUMMARY line (the rest of the surface:
+    test_torch_cli.py, test_torch_parallel_surface.py)."""
+    if "--backend" not in argv:
+        n = int(argv[1])
+        ssim, rows = cli.main(["-s", "6", "-n", "10", "--device", "cpu",
+                               *argv])
+        assert ssim.mesh.size == n and [r[0] for r in rows] == [0, 10]
+        assert ssim.half_neigh == ("--half_neigh" in argv)
+        out = capsys.readouterr().out
+        assert f"\n{n} 1 10 864 " in out and "PERF_SUMMARY" in out
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(["-s", "6", "--device", "cpu", *argv])
     assert "not ported" in str(exc.value.code)
