@@ -10,16 +10,20 @@ Run from the root of a checkout. Phases, one line each:
    source, side by side);
 3. hold each kernel against its plain PyTorch version on the card, f32:
    the LJ force (ev and noev) at 4k, 131k, 864k, a pinned capacity=64
-   grid, s=6 on a (2,2,2) grid (image aliasing) and the largest capacity
-   (512, the LJ kernels only); the rebin (the two launches of
+   grid, s=6 on a (2,2,2) grid (image aliasing), capacities 512 and 520
+   and two grids whose cells hold more than 512 atoms (s=18 on (3,3,3),
+   C = 936; s=20 on (2,2,2), C = 4,152, whose parts of a round each keep
+   thousands of candidates: the plain mirror's count is printed); the
+   rebin (the two launches of
    csrc/rebin.cu), bit-identical to cells.rebin_local (x, v, typ and the
-   overflow), on a perturbed state of the 4k, 131k, 864k, capacity=64
-   and capacity=512 grids, a (3,3,3) grid (every neighbor wraps), the EAM
+   overflow), on a perturbed state of the 4k, 131k, 864k, capacity=64,
+   512, 520 and C = 936 grids (ranks past 512), a (3,3,3) grid (every neighbor wraps), the EAM
    deck's 131k lattice, a capacity that overflows and a teleporter (every
    lattice has four atom types);
    the two EAM kernels (density + embedding, force) on the same five
-   shapes of the EAM deck, cap512 and a lattice of twice the density
-   (where the kernels hand their stage and lists over early): rho, fp
+   shapes of the EAM deck, cap512, cap520, a lattice of twice the density
+   (where the kernels hand their stage and lists over early) and s=18 on
+   (2,2,2) (C = 3280, where the stage of C = 512 is handed over): rho, fp
    (bit-identical to the plain embedding of the kernel's own rho), the
    embed energy sum, forces, energy and virial, ev and noev; the fused LJ step on the LJ shapes (one call and
    4 chained calls, ev and noev: x', w', eng, vir, vsq, the input buffer
@@ -96,7 +100,17 @@ Run from the root of a checkout. Phases, one line each:
    forces, the migration's sharded rebin) on (2,2,2) at 131k, rows
    against the decomposed full path's and the one-device half path's,
    rate and peak memory; their 4k/10000 f32 LJ gate; resume_sharded at
-   131k against the uninterrupted run; dryrun_multichip(8).
+   131k against the uninterrupted run; dryrun_multichip(8);
+14. past cells.MAX_CAPACITY (512, where the JAX package stops growing):
+   the 4k LJ and EAM decks at capacity=520 f32 on the card, and the LJ
+   deck through the fused step, 40 steps each (two rebins) through the
+   kernels (each of the path's kernels launched), rows at steps 0 and 40
+   against the default-capacity card run's; then a 4k LJ float64
+   ShardedSimulation on ["cuda:0", "cpu"] * 4, two device groups whose
+   copies go through the routes (the boundary slabs only), rows against
+   the one-group card run, with the elements each step ships per group
+   beside the whole other group's. [setup] prints the seconds of the main
+   paths' Simulation.from_input calls (131k and 864k, LJ and EAM).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (inputs read once, outputs written once) over
@@ -109,8 +123,9 @@ pair, rebin or FMA-chain functions, so their library_ms is null;
 copy_add's is torch.add(x, 1.0, out=y).
 
 Prints a JSON line of the 9 ported kernels and the 4 sharded forms, the
-rates, the probes' pins, the half paths' and the decomposed surface's
-numbers, the card line, and last {"ok": true,
+rates, the probes' pins, the half paths', the decomposed surface's and
+phase 14's numbers and the set-up seconds, the card line, and last
+{"ok": true,
 "device": {...}}. Any failure raises: the exit code is then not 0 and no
 result line is printed.
 """
@@ -159,25 +174,34 @@ HALF_GATE_STEPS = 10000
 SHAPES = {"4k": (10, None, None), "131k": (32, None, None),
           "864k": (60, None, None), "cap64": (10, None, 64),
           "s6_nb2": (6, (2, 2, 2), None)}
-# the LJ kernels also at the largest capacity (cells.MAX_CAPACITY): their
-# staged candidates take 73.7 KB of shared memory there, past the 48 KB
-# that a kernel gets without opting in
-LJ_SHAPES = {**SHAPES, "cap512": (10, None, 512)}
+# the LJ kernels also at C = 512, the largest stage (STAGE_MAX entries:
+# 73.7 KB of shared memory, past the 48 KB that a kernel gets without
+# opting in), and past it, where the pair loop walks a round in parts of
+# STAGE_MAX slots: C = 520, cells of 864 atoms (C = 936, the rebin's
+# ranks past 512) and of 4,000 (C = 4,152, parts that keep up to ~4,000
+# candidates each)
+LJ_SHAPES = {**SHAPES, "cap512": (10, None, 512), "cap520": (10, None, 520),
+             "c936": (18, (3, 3, 3), None), "stage": (20, (2, 2, 2), None)}
+# the pair kernels' stage past C = 512 (csrc/cell_stage.cuh kMaxStage)
+STAGE_MAX = 9 * 512
 # lj_force's compare at cap512 takes the fused step's +-0.04 lattice: in
 # the +-0.12 draw of that layout the positive and negative pair energies
 # nearly cancel, so f32 sums in two orders (the plain version's and the
 # kernel's, or the plain version's and its own f64 value) differ past
 # ENG_TOL, while forces and virial agree as at the other shapes
 # (PERF.md, the LJ pair loop findings)
-LJ_KICK = {"cap512": 0.04}
-# the EAM kernels (both forms) also at the largest capacity (the force
-# passes' stage of 9*C candidates with fp takes 92 KB of shared memory
-# there, opted in)
-# and on a lattice of twice the deck's density, where a cell keeps more
+# (the shapes past C = 512 take it too, untried at +-0.12)
+LJ_KICK = {"cap512": 0.04, "cap520": 0.04, "c936": 0.04, "stage": 0.04}
+# the EAM kernels (both forms) also at C = 512 (the force pass's largest
+# stage, STAGE_MAX candidates with fp, takes 92 KB of shared memory,
+# opted in) and on a lattice of twice the deck's density, where a cell keeps more
 # candidates than its stage holds (up to 357 against 9*C - 32 = 328)
 # and atoms have up to 78 pairs in the cutoff against a list of 64: the
 # kernels hand their stage over and run their lists early there
-EAM_SHAPES = {**SHAPES, "cap512": (10, None, 512), "dense": (10, None, None)}
+# and past C = 512: cap520, and cells of 2,916 atoms (C = 3,280), whose
+# stencil keeps more candidates than the largest stage holds
+EAM_SHAPES = {**SHAPES, "cap512": (10, None, 512), "dense": (10, None, None),
+              "cap520": (10, None, 520), "stage": (18, (2, 2, 2), None)}
 EAM_RHO_SCALE = {"dense": 2.0}
 # the rebin also on (s, nbins, capacity, deck, kick, teleport): a (3,3,3)
 # grid, where every neighbor of every cell wraps; the EAM deck's 131k
@@ -202,11 +226,17 @@ def ptxas_summary(log):
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             m = re.search(r"\d([a-z_]+_kernel)", mangled)
-            flags = (("one", "sharded") if "rebin" in mangled
-                     else ("noev", "ev"))
-            args = [a if a.isdigit() else flags[int(a[1])]
-                    for a in re.findall(r"Li(\d+)E|L(b[01])E", mangled)
-                    for a in a if a]
+            # the names of each bool template argument's two values
+            flags = ((("one", "sharded"), ("shared", "wide"))
+                     if "rebin" in mangled
+                     else (("noev", "ev"), ("whole", "parts")))
+            args, nbool = [], 0
+            for num, flag in re.findall(r"Li(\d+)E|L(b[01])E", mangled):
+                if num:
+                    args.append(num)
+                else:
+                    args.append(flags[min(nbool, 1)][int(flag[1])])
+                    nbool += 1
             name = (m.group(1) if m else mangled) + (
                 f"<{','.join(args)}>" if args else "")
         elif "spill stores" in ln:
@@ -754,6 +784,41 @@ def candidate_counts(label, geom, params, x, n_cut):
         raise AssertionError(f"candidates {label}: the prune keeps "
                              f"{got['kept_share']:.3f} of 27*C")
     return got
+
+
+def stage_handover(label, kind, geom, x, cut):
+    """How the pair kernels hand a "stage" shape's kept candidates over,
+    from the plain mirror (pairgrid.kept_candidates): the LJ pair loop
+    walks each round of 9 cells in parts of STAGE_MAX slots, so the shape
+    must need more than one part a round (C > 512); the EAM passes hand
+    their stage over when the next 32 slots might overfill it, so the
+    shape's stencil must keep more than STAGE_MAX - 32. Prints the most
+    candidates kept in one part (LJ) or one stencil (EAM)."""
+    import torch
+
+    from minimd_torch.cells import VALID_BELOW
+    from minimd_torch.ops.pairgrid import kept_candidates
+
+    keep = kept_candidates(geom, x, cut * cut, VALID_BELOW)
+    n, C = geom.ncells, geom.capacity
+    if kind == "lj":
+        rounds = keep.reshape(n, 3, 9 * C)
+        parts = -(-9 * C // STAGE_MAX)
+        most = int(torch.stack([
+            rounds[:, :, p * STAGE_MAX:(p + 1) * STAGE_MAX].sum(dim=2)
+            for p in range(parts)]).max())
+        ok = parts > 1
+        what = f"{parts} parts a round, at most {most} kept in one"
+    else:
+        most = int(keep.sum(dim=1).max())
+        ok = most > STAGE_MAX - 32
+        what = f"at most {most} kept in one stencil"
+    phase("stage", f"{kind} {label} nb={geom.nb} C={C}: {what}, against "
+          f"a stage of {STAGE_MAX}: handed over in parts={ok}")
+    if not ok:
+        raise AssertionError(f"{kind} {label}: the shape does not hand "
+                             "its stage over")
+    return most
 
 
 def eam_candidate_counts(label, geom, tables, x, max_share=EAM_KEPT_SHARE):
@@ -1969,6 +2034,145 @@ def sharded_surface_phases(full_rows, sharded_rows, half, workdir):
     return out
 
 
+# ----------------------------------------------------------------------
+# past the kernels' capacity; a mesh across the card and the host (14)
+# ----------------------------------------------------------------------
+
+def capacity_phases(card_line, steps=40):
+    """The 4k LJ and EAM decks at capacity=520, past cells.MAX_CAPACITY,
+    f32 on the card, the LJ deck through the fused step, and both decks
+    as a (2,2,2) ShardedSimulation on the card's domains: the kernels run
+    as at any capacity (each kernel of the path launched, no other),
+    `steps` steps (two rebins), step 0 within HALF_STEP0_RTOL and the
+    last row within HALF_STEPN_RTOL of the default-capacity card run's
+    (the same atoms in the same walk order; the thermo sums run over more
+    slots), every atom kept. Returns {label: numbers}."""
+    import numpy as np
+    import torch
+
+    from minimd_torch.config import parse_deck
+    from minimd_torch.parallel import ShardedSimulation
+    from minimd_torch.sim import Simulation
+
+    def make(inp, kind, **kw):
+        if kind == "sharded":
+            return ShardedSimulation.from_input(inp, devices=["cuda"] * 8,
+                                                **kw)
+        return Simulation.from_input(inp, device="cuda",
+                                     fused_step=kind == "fused", **kw)
+
+    out = {}
+    for deck, kind, want in (
+            ("lj", "", {"lj_force", "rebin_pull"}),
+            ("eam", "", {"eam_rho", "eam_force", "rebin_pull"}),
+            ("lj", "fused", {"lj_force", "lj_step", "rebin_pull"}),
+            ("lj", "sharded", {"lj_force_sharded", "rebin_sharded"}),
+            ("eam", "sharded", {"eam_rho_sharded", "eam_force_sharded",
+                                "rebin_sharded"})):
+        label = f"capacity-520-{deck}{'-' + kind if kind else ''}"
+        inp = parse_deck(REPO / f"inputs/in.{deck}.miniMD")
+        inp.nx = inp.ny = inp.nz = 10
+        ref = make(inp, kind)
+        ref_rows = ref.thermo_trace(ref.run(steps))
+        t0 = time.time()
+        sim = make(inp, kind, capacity=520)
+        reset_counters()
+        trace = sim.run(steps)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: n for k, n in counters().items() if n}
+        rows = sim.thermo_trace(trace)
+        d0 = _row_close(rows[0], ref_rows[0])
+        d1 = _row_close(rows[-1], ref_rows[-1], floor=1.0)
+        kept = int(sim.state.valid.sum())
+        ok = (set(launches) == want and sim.geom.capacity == 520
+              and d0 <= HALF_STEP0_RTOL[deck] and d1 <= HALF_STEPN_RTOL
+              and [r[0] for r in rows] == [0, steps]
+              == [r[0] for r in ref_rows]
+              and bool(np.isfinite(trace).all()) and kept == sim.natoms
+              and sim.state.overflow == 0
+              and getattr(sim, "_regrows", 0) == 0)
+        phase(label, f"natoms={sim.natoms} nb={sim.geom.nb} C=520 against "
+              f"C={ref.geom.capacity}: {steps} steps in {wall:.2f}s (setup "
+              f"included) rows={rows} ref={ref_rows} step0 max rel="
+              f"{d0:.3e} (tol {HALF_STEP0_RTOL[deck]:g}) step{steps} max "
+              f"rel={d1:.3e} (tol {HALF_STEPN_RTOL:g}) launches={launches}"
+              f" atoms={kept} {card_line} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the run past cells.MAX_CAPACITY "
+                                 "failed its checks")
+        out[label] = {"wall_s": wall, "step0_max_rel": d0,
+                      f"step{steps}_max_rel": d1, "launches": launches,
+                      "ref_capacity": ref.geom.capacity}
+        del ref, sim
+    torch.cuda.empty_cache()
+    return out
+
+
+MIXED_RTOL = 1e-10
+
+
+def mesh_mixed_phase(card_line, steps=40):
+    """A 4k LJ float64 ShardedSimulation on ["cuda:0", "cpu"] * 4: two
+    device groups (the x parities), so every step copies between the card
+    and the host, through the routes: `steps` steps (two migrations), a
+    row every 10, within MIXED_RTOL of the one-group card run's, every
+    atom kept. Prints, read from the halo's routes, the elements a step
+    ships to each group (the distinct boundary slots, 3 values each)
+    beside the whole other group's positions that the copies moved
+    before, and the values each group ships back per fold component.
+    Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from minimd_torch.config import parse_deck
+    from minimd_torch.ops.pairgrid import halo_extent
+    from minimd_torch.parallel import ShardedSimulation
+    from minimd_torch.parallel.step import Halo
+
+    inp = parse_deck(REPO / "inputs/in.lj.miniMD")
+    inp.nx = inp.ny = inp.nz = 10
+    inp.thermo_nstat = 10
+    one = ShardedSimulation.from_input(inp, devices=["cuda"] * 8,
+                                       dtype=torch.float64)
+    want = one.thermo_trace(one.run(steps))
+    t0 = time.time()
+    sim = ShardedSimulation.from_input(inp, devices=["cuda:0", "cpu"] * 4,
+                                       dtype=torch.float64)
+    reset_counters()
+    trace = sim.run(steps)
+    wall = time.time() - t0
+    launches = {k: n for k, n in counters().items() if n}
+    rows = sim.thermo_trace(trace)
+    d = max(_row_close(a, b, floor=1.0) for a, b in zip(rows, want))
+    groups = sim.router.groups
+    geom, D = sim.geom, sim.mesh.size
+    halo = Halo(geom, sim.mesh, sim.router, halo_extent(geom), sim.nb_local,
+                torch.float64)
+    Ml = halo.nlocal
+    ship = {str(dev): {"halo_elements": 3 * halo.received(g),
+                       "all_n_elements": 3 * (D - len(ks)) * Ml,
+                       "fold_values": halo.returned(g)}
+            for g, (dev, ks) in enumerate(groups)}
+    kept = int(sim.state.valid.sum())
+    ok = (len(groups) == 2 and d <= MIXED_RTOL and not launches
+          and kept == sim.natoms == 4000 and bool(np.isfinite(trace).all())
+          and [r[0] for r in rows] == [r[0] for r in want]
+          and all(v["halo_elements"] <= v["all_n_elements"]
+                  for v in ship.values()))
+    phase("mesh-mixed", f"natoms={sim.natoms} mesh={sim.mesh.shape} nb="
+          f"{geom.nb} local={sim.nb_local} C={geom.capacity} groups="
+          f"{[(str(dev), ks) for dev, ks in groups]} {steps} steps in "
+          f"{wall:.1f}s (setup included) rows max rel={d:.3e} (tol "
+          f"{MIXED_RTOL:g}) against the one-group card run; per step and "
+          f"group shipped {ship}; launches={launches} atoms={kept} "
+          f"{card_line} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mesh-mixed: the two-group run failed its "
+                             "checks")
+    return {"rows_max_rel": d, "wall_s": wall, "shipped": ship}
+
+
 def main():
     import numpy as np
     import torch
@@ -2019,6 +2223,8 @@ def main():
                                         compare_rebin(label, geom, st, xp))
         rebin = cells.rebin_local if min(geom.nb) >= 3 else cells.rebin_lean
         x, v, typ, _ = rebin(xp, st.v, st.typ, geom)
+        if label == "stage":
+            stage_handover(label, "lj", geom, x, inp.force_cut)
         max_err["lj_force"] = max(max_err["lj_force"], compare_lj(
             label, geom, lj_params(inp), x, typ))
         # the fused step chains 4 steps from a +-0.04 lattice: larger kicks
@@ -2040,6 +2246,8 @@ def main():
         x = rebinned(geom, st, xp)
         if label in EAM_RHO_SCALE:
             eam_candidate_counts(label, geom, tables, x, max_share=1.0)
+        if label == "stage":
+            stage_handover(label, "eam", geom, x, tables.cut)
         for kind, compare in (("", compare_eam), ("_rows", compare_eam_rows)):
             e_rho, e_f = compare(label, geom, tables, x, st.typ)
             max_err[f"eam_rho{kind}"] = max(max_err[f"eam_rho{kind}"], e_rho)
@@ -2095,11 +2303,16 @@ def main():
         gate(deck, label, ("rebin_pull",), half=True, gn=gn,
              steps=HALF_GATE_STEPS)
 
+    setup_s = {}     # the seconds of each main path's from_input
+
     def main_path(label, inp, steps, fused=False, rows=False):
         """Simulation.from_input on the deck, counters set to 0 after
         construction, run(steps): (sim, thermo rows, nonzero launches)."""
+        torch.cuda.synchronize()
         t0 = time.time()
         sim = Simulation.from_input(inp, device="cuda", fused_step=fused)
+        torch.cuda.synchronize()
+        setup_s[label] = time.time() - t0
         if rows:
             through_rows(sim)
         reset_counters()
@@ -2108,7 +2321,7 @@ def main():
         rows_ = sim.thermo_trace(trace)
         phase(label, f"natoms={sim.natoms} nb={sim.geom.nb} "
               f"C={sim.geom.capacity} {steps} steps in "
-              f"{time.time() - t0:.1f}s (setup included) "
+              f"{time.time() - t0:.1f}s (setup {setup_s[label]:.3f}s) "
               f"launches={launches} overflow={sim.state.overflow} "
               f"regrows={sim._regrows} rows={rows_}")
         if not (trace.shape == (steps, 3) and bool(np.isfinite(trace).all())
@@ -2248,6 +2461,11 @@ def main():
     eam_times["864k"] = time_eam_kernels(
         "864k", *lattice(60, deck="eam", kick=0.08), 20, 1)
 
+    card_line = f"[{card}]"
+    phase("setup", "Simulation.from_input seconds (host set-up and the "
+          "first force, to a card sync) " + " ".join(
+              f"{k}={v:.3f}s" for k, v in setup_s.items()) + f" {card_line}")
+
     # 7. the micro-probes; 8. the half-neighbor paths at full width;
     # 9. the CLI's timed run and YAML report; 10. checkpoint and resume
     micro_rows, pins = micro_phase()
@@ -2285,6 +2503,11 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         surface = sharded_surface_phases(full_rows, sharded_rows, half,
                                          workdir)
+
+    # 14. past the kernels' capacity, and a mesh across the card and the
+    # host
+    capacity = capacity_phases(card_line)
+    mixed = mesh_mixed_phase(card_line)
 
     def entry(name, source, replaces, t, key, **extra):
         k131, k864 = t["131k"], t["864k"]
@@ -2338,7 +2561,9 @@ def main():
                       "idle_split": idle,
                       "sharded_matom_steps_per_s": sharded_rates_,
                       "sharded_host_us_per_step": sharded_host,
-                      "sharded_surface": surface}))
+                      "sharded_surface": surface,
+                      "setup_s": setup_s, "capacity_520": capacity,
+                      "mesh_mixed": mixed}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

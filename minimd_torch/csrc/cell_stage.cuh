@@ -44,6 +44,18 @@
 // Kept: squared distance to the own-atom box <= cutsq * kKeepMargin.
 constexpr float kKeepMargin = 1.0f + 0x1p-10f;
 
+// The stage holds kStageCells * C candidates (a dz plane of the stencil),
+// at most kMaxStage: past C = 512 the kept candidates are handed over in
+// parts, so any capacity runs in the shared memory of C = 512 (73.7 KB for
+// the LJ stage, 92 KB for the EAM force pass's).
+constexpr int kStageCells = 9;
+constexpr int kStageC = 512;  // the capacity up to which it holds 9*C
+constexpr int kMaxStage = kStageCells * kStageC;
+
+__host__ __device__ inline int stage_cap(int C) {
+  return kStageCells * C < kMaxStage ? kStageCells * C : kMaxStage;
+}
+
 // Lets `kernel` take `smem` bytes of dynamic shared memory: above 48 KB a
 // kernel must opt in. Returns the CUDA error of the opt-in.
 template <class Kernel>

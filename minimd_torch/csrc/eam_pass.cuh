@@ -67,15 +67,14 @@ __device__ __forceinline__ float density_group(
   return EV ? warp_sum(emb) : 0.f;
 }
 
-// The stage holds kStageCells * C candidates (float4, and fp in the force
+// The stage holds stage_cap(C) candidates (float4, and fp in the force
 // pass): a stencil's kept candidates fit at once where they are fewer
-// than (kStageCells - 1/8) * C, ~216 of 1,080 at C = 40; otherwise
+// than stage_cap(C) - 32, ~216 of 1,080 at C = 40; otherwise
 // stage_stencil hands them over in parts.
-constexpr int kStageCells = 9;
 
 // Dynamic shared memory of a pass at capacity C: the stage and the lists.
 inline size_t eam_pass_bytes(int C, bool force) {
-  return pair_list_bytes(kStageCells * C, force);
+  return pair_list_bytes(stage_cap(C), force);
 }
 
 // The density pass of `cell` of grid g (the block's): rho_i = sum R(r_ij)
@@ -92,7 +91,7 @@ __device__ __forceinline__ void density_pass(
     float rdrho, RFn&& r_fn) {
   const int C = g.C;
   const long long M = g.M;
-  const int cap = kStageCells * C;
+  const int cap = stage_cap(C);
   uint16_t* lists = reinterpret_cast<uint16_t*>(stage + cap);
   // the cell's first stored slot (the one-device form indexes as before)
   const long long base = SHARDED ? cell_base(g, cell) : 0;
@@ -148,7 +147,7 @@ __device__ __forceinline__ void force_pass(
     PsiFn&& psi_fn, PFn&& p_fn) {
   const int C = g.C;
   const long long M = g.M;
-  const int cap = kStageCells * C;
+  const int cap = stage_cap(C);
   float* sfp = reinterpret_cast<float*>(stage + cap);
   uint16_t* lists = reinterpret_cast<uint16_t*>(sfp + cap);
   const long long Mo = SHARDED ? interior_slots(g) : M;

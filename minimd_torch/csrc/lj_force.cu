@@ -37,7 +37,8 @@ namespace {
 // The force on the atoms of one cell of grid g, written at the cell's
 // interior slots of f (3 rows of interior_slots(g)); with EV the cell's
 // partials go to eng_part / vir_part[blockIdx.x] (= cell on one device).
-template <bool EV, bool SHARDED>
+// PARTS: C > 512 (lj_pair_sums').
+template <bool EV, bool SHARDED, bool PARTS>
 __device__ __forceinline__ void lj_force_cell(
     const CellGrid& g, int cell, float* __restrict__ f,
     float* __restrict__ eng_part, float* __restrict__ vir_part,
@@ -65,8 +66,8 @@ __device__ __forceinline__ void lj_force_cell(
     const bool valid = mine && xi < valid_below;
     float fx = 0.f, fy = 0.f, fz = 0.f, e = 0.f, w = 0.f;
     if (__any_sync(0xffffffffu, valid)) {
-      lj_pair_sums<EV>(g, cw, i, valid, xi, yi, zi, k, valid_below, stage,
-                       fx, fy, fz, e, w);
+      lj_pair_sums<EV, PARTS>(g, cw, i, valid, xi, yi, zi, k, valid_below,
+                              stage, fx, fy, fz, e, w);
     }
     if (mine) {
       f[oi] = fx;
@@ -85,7 +86,7 @@ __device__ __forceinline__ void lj_force_cell(
   }
 }
 
-template <bool EV>
+template <bool EV, bool PARTS>
 __global__ void lj_force_kernel(const __grid_constant__ CellGrid g,
                                 float* __restrict__ f,
                                 float* __restrict__ eng_part,
@@ -93,14 +94,14 @@ __global__ void lj_force_kernel(const __grid_constant__ CellGrid g,
                                 const __grid_constant__ LJCoeffs k,
                                 float eng_scale, float valid_below) {
   extern __shared__ float4 stage[];  // lj_stage_bytes(C): kept candidates
-  lj_force_cell<EV, false>(g, blockIdx.x, f, eng_part, vir_part, k,
-                           eng_scale, valid_below, stage);
+  lj_force_cell<EV, false, PARTS>(g, blockIdx.x, f, eng_part, vir_part, k,
+                                  eng_scale, valid_below, stage);
 }
 
 // The sharded form: the domains of a decomposed run on one device, block
 // b the cell b % ncells of domain b / ncells (cellgrid.cuh domain_cell),
 // positions stored with the halo axes padded.
-template <bool EV>
+template <bool EV, bool PARTS>
 __global__ void lj_force_sharded_kernel(const __grid_constant__ CellGrid g,
                                         float* __restrict__ f,
                                         float* __restrict__ eng_part,
@@ -109,17 +110,22 @@ __global__ void lj_force_sharded_kernel(const __grid_constant__ CellGrid g,
                                         float eng_scale, float valid_below) {
   extern __shared__ float4 stage[];  // lj_stage_bytes(C): kept candidates
   const DomainCell dc = domain_cell(g);
-  lj_force_cell<EV, true>(dc.g, dc.cell,
-                          f + dc.dom * 3 * interior_slots(dc.g), eng_part,
-                          vir_part, k, eng_scale, valid_below, stage);
+  lj_force_cell<EV, true, PARTS>(dc.g, dc.cell,
+                                 f + dc.dom * 3 * interior_slots(dc.g),
+                                 eng_part, vir_part, k, eng_scale,
+                                 valid_below, stage);
 }
 
 template <bool EV, bool SHARDED>
 cudaError_t launch(int blocks, size_t smem, cudaStream_t s, const CellGrid& g,
                    float* f, float* eng, float* vir, const LJCoeffs& k,
                    float eng_scale, float valid_below) {
+  const bool parts = g.C > kStageC;
   const auto kernel =
-      SHARDED ? lj_force_sharded_kernel<EV> : lj_force_kernel<EV>;
+      SHARDED ? (parts ? lj_force_sharded_kernel<EV, true>
+                       : lj_force_sharded_kernel<EV, false>)
+              : (parts ? lj_force_kernel<EV, true>
+                       : lj_force_kernel<EV, false>);
   const cudaError_t err = allow_stage(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, 32, smem, s>>>(  // a warp a cell

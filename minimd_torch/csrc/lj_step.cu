@@ -52,7 +52,7 @@
 
 namespace {
 
-template <bool EV>
+template <bool EV, bool PARTS>
 __global__ void lj_step_kernel(const __grid_constant__ CellGrid g,
                                float* __restrict__ w,
                                float* __restrict__ x_next,
@@ -82,8 +82,8 @@ __global__ void lj_step_kernel(const __grid_constant__ CellGrid g,
     const bool valid = own && xi < valid_below;
     float fx = 0.f, fy = 0.f, fz = 0.f, e = 0.f, vir = 0.f;
     if (__any_sync(0xffffffffu, valid)) {
-      lj_pair_sums<EV>(g, cw, i, valid, xi, yi, zi, k, valid_below, stage,
-                       fx, fy, fz, e, vir);
+      lj_pair_sums<EV, PARTS>(g, cw, i, valid, xi, yi, zi, k, valid_below,
+                              stage, fx, fy, fz, e, vir);
     }
     float vsq = 0.f;
     if (own) {
@@ -112,6 +112,19 @@ __global__ void lj_step_kernel(const __grid_constant__ CellGrid g,
   }
 }
 
+// PARTS: C > 512 (lj_pair_sums').
+template <bool EV, bool PARTS>
+cudaError_t launch(int ncells, size_t smem, cudaStream_t s, const CellGrid& g,
+                   float* w, float* x_next, float* eng, float* vir,
+                   float* vsq, const LJCoeffs& k, float eng_scale, float dt,
+                   float dtf, float valid_below) {
+  const cudaError_t err = allow_stage(lj_step_kernel<EV, PARTS>, smem);
+  if (err != cudaSuccess) return err;
+  lj_step_kernel<EV, PARTS><<<ncells, 32, smem, s>>>(  // one warp per cell
+      g, w, x_next, eng, vir, vsq, k, eng_scale, dt, dtf, valid_below);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (3, M) float32 positions x_k (read only); w: (3, M) float32 half-kick
@@ -128,24 +141,15 @@ extern "C" int lj_step_launch(const void* x, void* w, void* x_next, void* eng,
   const int ncells = nbx * nby * nbz;
   const CellGrid g{(const float*)x, (long long)ncells * C, nbx, nby, nbz, C,
                    prdx, prdy, prdz};
-  const int threads = 32;  // one warp per cell
   const size_t smem = lj_stage_bytes(C);
   const LJCoeffs k{cutsq, (float)(48.0 * eps), (float)(24.0 * eps), sig6};
   const float eng_scale = (float)(4.0 * eps);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (evflag) {
-    err = allow_stage(lj_step_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    lj_step_kernel<true><<<ncells, threads, smem, s>>>(
-        g, (float*)w, (float*)x_next, (float*)eng, (float*)vir, (float*)vsq,
-        k, eng_scale, dt, dtf, valid_below);
-  } else {
-    err = allow_stage(lj_step_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    lj_step_kernel<false><<<ncells, threads, smem, s>>>(
-        g, (float*)w, (float*)x_next, nullptr, nullptr, nullptr, k,
-        eng_scale, dt, dtf, valid_below);
-  }
-  return (int)cudaGetLastError();
+  const bool parts = C > kStageC;
+  const auto go = evflag ? (parts ? launch<true, true> : launch<true, false>)
+                         : (parts ? launch<false, true> : launch<false, false>);
+  return (int)go(ncells, smem, (cudaStream_t)stream, g, (float*)w,
+                 (float*)x_next, evflag ? (float*)eng : nullptr,
+                 evflag ? (float*)vir : nullptr,
+                 evflag ? (float*)vsq : nullptr, k, eng_scale, dt, dtf,
+                 valid_below);
 }

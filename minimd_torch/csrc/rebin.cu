@@ -51,7 +51,11 @@
 // The neighbor mapping is one function, `neighbor`, that wraps
 // periodically; phase 1 finds a slot's key and phase 2 its sources with
 // it. Needs min(nb) >= 3 on the wrapped axes (then at most one key fits a
-// pair of cells) and C <= 512 (a rank and a start fit 16 bits).
+// pair of cells). Up to C = 512 (kSharedKeys) a cell's keys sit in shared
+// memory and a key and its rank, or a start and a count, share one int
+// (16 bits each); past it (WIDE) the keys go to global scratch, a key
+// takes the low 5 bits beside its rank, and the starts and counts are two
+// arrays: the same placement at any capacity.
 //
 // The sharded form places one domain's residents in a decomposed run
 // (minimd_torch/parallel/comm.py; rebin_pallas.py:49-63 pads the pull
@@ -71,7 +75,7 @@ namespace {
 
 constexpr int kOffsets = 27;       // PULL_OFFSETS
 constexpr int kWarpsPerBlock = 4;  // one cell a warp
-constexpr int kMaxCapacity = 512;  // cells.MAX_CAPACITY
+constexpr int kSharedKeys = 512;   // C up to which the keys are shared
 constexpr int kNoKey = -1;
 
 struct Grid {
@@ -116,6 +120,21 @@ __device__ __forceinline__ int axis_cell(float x, float p, float off,
   return min(max(i, 0), n - 1);
 }
 
+// A slot's key j (< 27) and its rank r among the cell's earlier slots of
+// that key, packed in one int, and back.
+template <bool WIDE>
+__device__ __forceinline__ int pack_key(int j, int r) {
+  return WIDE ? (r << 5) | j : (j << 16) | r;
+}
+template <bool WIDE>
+__device__ __forceinline__ int key_of(int k) {
+  return WIDE ? k & 31 : k >> 16;
+}
+template <bool WIDE>
+__device__ __forceinline__ int rank_of(int k) {
+  return WIDE ? k >> 5 : k & 0xffff;
+}
+
 // The sum of c over lanes 0..lane (a scan in lane order).
 __device__ __forceinline__ int warp_inclusive_sum(int c, int lane) {
 #pragma unroll
@@ -127,15 +146,17 @@ __device__ __forceinline__ int warp_inclusive_sum(int c, int lane) {
 }
 
 // SHARDED: the dead axes, origin and sentinel slot of a domain (from g);
-// else one device, with none of them in the code.
-template <bool SHARDED>
+// else one device, with none of them in the code. WIDE: C > kSharedKeys,
+// the keys in wide_keys (M ints) and cs's starts after its counts.
+template <bool SHARDED, bool WIDE>
 __global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
                                  const float* __restrict__ x,
                                  int* __restrict__ perm,
                                  int* __restrict__ cs,
+                                 int* __restrict__ wide_keys,
                                  int* __restrict__ overflow) {
   __shared__ int seen[kWarpsPerBlock][32];
-  __shared__ int keys[kWarpsPerBlock][kMaxCapacity];
+  __shared__ int shared_keys[kWarpsPerBlock][WIDE ? 1 : kSharedKeys];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int cell = blockIdx.x * kWarpsPerBlock + warp;
   const int ncells = g.nbx * g.nby * g.nbz;
@@ -145,6 +166,7 @@ __global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
   const int old[3] = {cell % g.nbx, (cell / g.nbx) % g.nby,
                       cell / (g.nbx * g.nby)};
   const long long row = (long long)cell * g.C;
+  int* keys = WIDE ? wide_keys + row : shared_keys[warp];
   seen[warp][lane] = 0;
   __syncwarp();
 
@@ -187,7 +209,7 @@ __global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
     __syncwarp();
     if (j != kNoKey && r == 0) seen[warp][j] = prior + __popc(peers);
     __syncwarp();
-    if (s < g.C) keys[warp][s] = j != kNoKey ? (j << 16) | (prior + r) : kNoKey;
+    if (s < g.C) keys[s] = j != kNoKey ? pack_key<WIDE>(j, prior + r) : kNoKey;
     lost += __popc(__ballot_sync(0xffffffffu, valid && j == kNoKey));
   }
 
@@ -196,16 +218,25 @@ __global__ void rebin_bin_kernel(const __grid_constant__ Grid g,
   const int start = warp_inclusive_sum(c, lane) - c;
   __syncwarp();
   seen[warp][lane] = start;
-  if (lane < kOffsets) cs[cell * kOffsets + lane] = (start << 16) | c;
-  __syncwarp();
+  if (lane < kOffsets) {
+    const long long at = (long long)cell * kOffsets + lane;
+    if (WIDE) {
+      cs[at] = c;
+      cs[(long long)ncells * kOffsets + at] = start;
+    } else {
+      cs[at] = (start << 16) | c;
+    }
+  }
+  __syncwarp();  // with WIDE also the keys in global memory
   for (int s = lane; s < g.C; s += 32) {
-    const int k = keys[warp][s];
-    if (k != kNoKey) perm[row + seen[warp][k >> 16] + (k & 0xffff)] = s;
+    const int k = keys[s];
+    if (k != kNoKey)
+      perm[row + seen[warp][key_of<WIDE>(k)] + rank_of<WIDE>(k)] = s;
   }
   if (lane == 0 && lost) atomicAdd(overflow, lost);
 }
 
-template <bool SHARDED>
+template <bool SHARDED, bool WIDE>
 __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
                                     const float* __restrict__ x,
                                     const float* __restrict__ v,
@@ -238,10 +269,12 @@ __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
     src_start[warp][lane] = 0;
     if (sz >= 0 && sy >= 0 && sx >= 0) {  // off a dead axis: no source
       const int src = (sz * g.nby + sy) * g.nbx + sx;
-      const int p = cs[src * kOffsets + lane];
-      c = p & 0xffff;
+      const long long at = (long long)src * kOffsets + lane;
+      const int p = cs[at];
+      c = WIDE ? p : p & 0xffff;
       src_row[warp][lane] = (long long)src * C;
-      src_start[warp][lane] = p >> 16;
+      src_start[warp][lane] =
+          WIDE ? cs[(long long)ncells * kOffsets + at] : p >> 16;
     }
   }
   const int inc = warp_inclusive_sum(c, lane);
@@ -313,7 +346,8 @@ __global__ void rebin_gather_kernel(const __grid_constant__ Grid g,
 }  // namespace
 
 // x, v: (3, M) float32; typ: (M,) int32; x_out, v_out, t_out: the same
-// shapes, written in full; scratch: (M + 27 * ncells) int32 (perm, cs);
+// shapes, written in full; scratch: (M + 27 * ncells) int32 (perm, cs),
+// twice that past C = 512 (perm, the keys, cs's counts and starts);
 // overflow: int32, zeroed here: one (lost and capacity summed) or, with
 // `split`, two (lost, capacity); counts: (ncells,) int32 out, the atoms
 // that belong to each cell (may exceed C), or null. prd, off, inv: the
@@ -339,20 +373,30 @@ extern "C" int rebin_launch(const void* x, const void* v, const void* typ,
                {prdx, prdy, prdz}, {offx, offy, offz}, {invx, invy, invz},
                valid_below, {nbgx, nbgy, nbgz}, {orgx, orgy, orgz}, dead,
                slot0};
+  const bool wide = C > kSharedKeys;
   int* perm = (int*)scratch;
-  int* cs = perm + g.M;
+  int* wide_keys = wide ? perm + g.M : nullptr;
+  int* cs = perm + (wide ? 2 : 1) * g.M;
   int* lost = (int*)overflow;
   int* cap = split ? lost + 1 : lost;
   cudaMemsetAsync(lost, 0, (split ? 2 : 1) * sizeof(int), s);
   int rc = (int)cudaGetLastError();
   const int blocks = (ncells + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const bool sharded = split || dead || orgx || orgy || orgz || slot0;
-  (sharded ? rebin_bin_kernel<true> : rebin_bin_kernel<false>)
-      <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(g, (const float*)x, perm, cs,
-                                              lost);
+  const auto bin =
+      sharded ? (wide ? rebin_bin_kernel<true, true>
+                      : rebin_bin_kernel<true, false>)
+              : (wide ? rebin_bin_kernel<false, true>
+                      : rebin_bin_kernel<false, false>);
+  bin<<<blocks, 32 * kWarpsPerBlock, 0, s>>>(g, (const float*)x, perm, cs,
+                                             wide_keys, lost);
   if (!rc) rc = (int)cudaGetLastError();
-  (sharded ? rebin_gather_kernel<true> : rebin_gather_kernel<false>)
-      <<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+  const auto gather =
+      sharded ? (wide ? rebin_gather_kernel<true, true>
+                      : rebin_gather_kernel<true, false>)
+              : (wide ? rebin_gather_kernel<false, true>
+                      : rebin_gather_kernel<false, false>);
+  gather<<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
           g, (const float*)x, (const float*)v, (const int*)typ, perm, cs,
           (float*)x_out, (float*)v_out, (int*)t_out, (int*)counts, cap);
   if (!rc) rc = (int)cudaGetLastError();

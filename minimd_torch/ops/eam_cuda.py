@@ -7,11 +7,10 @@ its epilogue) and `eam_force` (pair forces from the fp of the 27 cells).
 The kernels read the raw cell-major (3, M) positions; their sharded
 forms (a domain of a decomposed run) read positions and fp padded on the
 decomposed axes by the halo exchange, as ops/lj_cuda.py's does. They
-take f32, a
-single-cell stencil reach (binsize >= cutneigh) and any capacity
-C <= cells.MAX_CAPACITY. On a CPU tensor the closures take the plain
-versions (ops/eam_grid.py); on a CUDA tensor they launch the kernels or
-raise.
+take f32, a single-cell stencil reach (binsize >= cutneigh) and any
+capacity C (past C = 512 the stage is handed over in parts). On a CPU
+tensor the closures take the plain versions (ops/eam_grid.py); on a
+CUDA tensor they launch the kernels or raise.
 
 in_cut_lists and list_steps are the plain mirror of the pair lists of
 these kernels and of the gather-table ones (ops/eam_rows_cuda.py), which
@@ -29,7 +28,7 @@ import torch
 
 from .. import _build
 from .._build import on_device
-from ..cells import MAX_CAPACITY, VALID_BELOW, CellGeometry
+from ..cells import VALID_BELOW, CellGeometry
 from ..eam_file import PairPolys
 from .eam import EAMTables
 from .eam_grid import make_eam_pair_grid, make_eam_rho_grid, two_pass_force
@@ -40,9 +39,9 @@ from .pairgrid import (halo_extent, kept_candidates, plain_padded,
 # one-device forms and the sharded forms (a domain of a decomposed run).
 LAUNCHES = {"eam_rho": 0, "eam_force": 0}
 SHARDED_LAUNCHES = {"eam_rho_sharded": 0, "eam_force_sharded": 0}
-# csrc/eam_pass.cuh kStageCells (the EAM kernels' stage holds
-# STAGE_CELLS * C candidates), csrc/cell_stage.cuh kListLen and kListStep
-STAGE_CELLS, LIST_LEN, LIST_STEP = 9, 64, 8
+# csrc/cell_stage.cuh kStageCells and kMaxStage (the EAM kernels' stage
+# holds min(STAGE_CELLS * C, MAX_STAGE) candidates), kListLen and kListStep
+STAGE_CELLS, MAX_STAGE, LIST_LEN, LIST_STEP = 9, 9 * 512, 64, 8
 
 # csrc/eam_force.cu's PairParams layout
 _MAX_BODY, _MERGED_N, _ROW_N, _MAX_ROWS = 25, 8, 4, 4
@@ -104,8 +103,6 @@ def _check_geometry(geom: CellGeometry, dtype):
     if halo_extent(geom) != 1:
         raise ValueError("EAM CUDA kernels need binsize >= cutneigh "
                          f"(stencil reach 1), got {halo_extent(geom)}")
-    if geom.capacity > MAX_CAPACITY:
-        raise ValueError(f"capacity {geom.capacity} > {MAX_CAPACITY}")
 
 
 def _check_tensor(t, name: str, shape):
@@ -317,17 +314,17 @@ def in_cut_lists(geom: CellGeometry, x: torch.Tensor, cutsq: float,
 def list_steps(geom: CellGeometry, lists: torch.Tensor, keep: torch.Tensor,
                chunk: int = 1024):
     """(steps, any_lane): per cell, the warp-steps of the EAM kernels' pair
-    functions. steps runs the lists as csrc/cell_stage.cuh does: the
-    stage of STAGE_CELLS * C candidates is handed over whenever its next
-    32-wide step might not fit; within a handover the lanes' lists are
-    run (their longest length) whenever one might pass LIST_LEN before the
-    next LIST_STEP candidates, and at the end. any_lane counts, as the
+    functions. steps runs the lists as csrc/cell_stage.cuh does: the stage
+    of min(STAGE_CELLS * C, MAX_STAGE) candidates is handed over whenever
+    its next 32-wide step might not fit; within a handover the lanes' lists
+    are run (their longest length) whenever one might pass LIST_LEN before
+    the next LIST_STEP candidates, and at the end. any_lane counts, as the
     first design's kernels ran them, the candidates inside the cutoff for
     any lane of a 32-slot group. lists: in_cut_lists; keep:
     pairgrid.kept_candidates. Both (ncells,) int64."""
     n, C = geom.ncells, geom.capacity
     W, G = 27 * C, -(-C // 32)
-    cap = STAGE_CELLS * C
+    cap = min(STAGE_CELLS * C, MAX_STAGE)
     nbatch, nqb = -(-W // 32), -(-cap // LIST_STEP)
     dev = keep.device
     # the stage's handovers: segment of each 32-wide step, in walk order

@@ -10,11 +10,10 @@ kernels run (one warp per cell on the pruned stage and per-lane in-cut
 lists of csrc/cell_stage.cuh), with a cubic from the tables (read from
 global memory) in place of the Horner; eam_cuda.in_cut_lists and
 list_steps mirror their lists too (the same cutoff, see row_map). The tables are eam_file.PairRows with degree 3 (4
-coefficients per piece). The kernels take f32, stencil reach 1 and C <=
-cells.MAX_CAPACITY; the JAX kernel's 3*C <= 128 limit is a TPU lane limit
-and is not carried over. On a CPU tensor the closures take the plain
-versions (ops/eam_rows.py); on a CUDA tensor they launch the kernels or
-raise. Simulation does not wire this form in; a caller sets a
+coefficients per piece). The kernels take f32, stencil reach 1 and any
+capacity C; the JAX kernel's 3*C <= 128 limit is a TPU lane limit and is
+not carried over. On a CPU tensor the closures take the plain versions
+(ops/eam_rows.py); on a CUDA tensor they launch the kernels or raise. Simulation does not wire this form in; a caller sets a
 Simulation's force_fn / force_fn_noev to make_eam_force_rows_cuda's
 closures.
 """

@@ -6,11 +6,11 @@ candidate pack and no halo-padded grid on one device. Its sharded form
 (a domain of a decomposed run, minimd_torch/parallel) reads the domain's
 positions with one halo cell on each side of the decomposed axes, as the
 halo exchange fills them, and wraps the other axes itself
-(csrc/cellgrid.cuh). It takes f32, a single-cell
-stencil reach (binsize >= cutneigh), type-uniform parameters and any
-capacity C <= cells.MAX_CAPACITY. On a CPU tensor the closures take the
-plain version (ops/lj_grid.py); on a CUDA tensor they launch the kernel
-or raise.
+(csrc/cellgrid.cuh). It takes f32, a single-cell stencil reach (binsize
+>= cutneigh), type-uniform parameters and any capacity C (past C = 512
+the pair loop takes its stage in parts). On a CPU tensor the closures
+take the plain version (ops/lj_grid.py); on a CUDA tensor they launch
+the kernel or raise.
 
 pairgrid.kept_candidates is the plain mirror of the candidates that the
 LJ pair loop (csrc/lj_pair.cuh, on csrc/cell_stage.cuh) keeps, for the
@@ -23,7 +23,7 @@ import torch
 
 from .. import _build
 from .._build import on_device
-from ..cells import MAX_CAPACITY, VALID_BELOW, CellGeometry
+from ..cells import VALID_BELOW, CellGeometry
 from .lj import LJParams
 from .lj_grid import lj_pair_loop, make_lj_force_grid
 from .pairgrid import halo_extent, plain_padded, sharded_grid
@@ -44,8 +44,6 @@ def check_lj_kernel_inputs(geom: CellGeometry, params: LJParams, dtype):
                          f"(stencil reach 1), got {halo_extent(geom)}")
     if not params.uniform:
         raise ValueError("LJ CUDA kernel needs type-uniform LJ parameters")
-    if geom.capacity > MAX_CAPACITY:
-        raise ValueError(f"capacity {geom.capacity} > {MAX_CAPACITY}")
 
 
 def make_lj_force_cuda(geom: CellGeometry, params: LJParams,

@@ -5,8 +5,8 @@ One launch per plain MD step: the LJ force, both kicks and the drift. The
 kernel reads x_k from one (3, M) buffer and writes x_{k+1} into another
 (positions ping-pong, see csrc/lj_step.cu), and updates w in place. It
 takes what the LJ kernel takes (f32, stencil reach 1, type-uniform
-parameters, C <= cells.MAX_CAPACITY). On a CPU tensor the step takes the
-plain version (ops/lj_step.py); on a CUDA tensor it launches the kernel or
+parameters, any capacity C). On a CPU tensor the step takes the plain
+version (ops/lj_step.py); on a CUDA tensor it launches the kernel or
 raises. `seed` is plain torch on either device (once per interval).
 """
 

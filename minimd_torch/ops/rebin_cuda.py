@@ -18,14 +18,17 @@ import torch
 
 from .. import _build
 from .._build import on_device
-from ..cells import (MAX_CAPACITY, VALID_BELOW, CellGeometry, cell_columns,
-                     is_valid, rebin_local)
+from ..cells import (VALID_BELOW, CellGeometry, cell_columns, is_valid,
+                     rebin_local)
 
 # Rebins through the kernels since import (or since a caller reset it to
 # 0); each is one launch of each of the two phases. SHARDED_LAUNCHES
 # counts the sharded form's (a domain's residents in a migration).
 LAUNCHES = 0
 SHARDED_LAUNCHES = 0
+# csrc/rebin.cu kSharedKeys: past this capacity the kernels keep a cell's
+# keys in the scratch, which then holds twice the ints
+SHARED_KEYS = 512
 
 
 def make_rebin_cuda(geom: CellGeometry, device="cuda", nb_local=None,
@@ -49,8 +52,6 @@ def make_rebin_cuda(geom: CellGeometry, device="cuda", nb_local=None,
     if any(n < 3 and not d for n, d in zip(nb, dec)):
         raise ValueError(f"the local rebin needs 3 cells or more on the "
                          f"axes that wrap, got {nb}")
-    if geom.capacity > MAX_CAPACITY:
-        raise ValueError(f"capacity {geom.capacity} > {MAX_CAPACITY}")
     device = torch.device(device)
     nbx, nby, nbz = nb
     C = geom.capacity
@@ -73,8 +74,8 @@ def make_rebin_cuda(geom: CellGeometry, device="cuda", nb_local=None,
                     f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         x_out, v_out = torch.empty_like(x), torch.empty_like(v)
         t_out = torch.empty_like(typ)
-        scratch = torch.empty(M + 27 * ncells, dtype=torch.int32,
-                              device=x.device)
+        scratch = torch.empty((M + 27 * ncells) * (1 + (C > SHARED_KEYS)),
+                              dtype=torch.int32, device=x.device)
         overflow = torch.empty(2 if sharded else (), dtype=torch.int32,
                                device=x.device)
         counts = (torch.empty(ncells, dtype=torch.int32, device=x.device)

@@ -9,7 +9,9 @@
 The mesh is a list of domains in one process, each a block of cells on a
 torch.device; devices may repeat (["cuda:0"] * 8 is a 2x2x2 mesh on one
 card, ["cpu"] * 8 the tests' mesh), and every exchange between domains is
-a tensor copy (a peer copy between cards). This is the JAX package's own
+a tensor copy (a peer copy between cards) of what the receiving device's
+domains read: the boundary slabs of the halo, the Newton shells of the
+folds, the leaver packs of ring neighbors. This is the JAX package's own
 model: one program over the mesh's devices.
 
 mesh.py   - min-surface processor grid, the domains and their copies

@@ -17,7 +17,9 @@ Every step of the JAX version is here with the same operations in the
 same order, so that a float64 migration is bit for bit the JAX one, but
 for the sentinels of the empty slots, which are distinct across domains
 here (domain_sentinels). The
-domains of a device run batched (mesh.Router); the argsorts are stable,
+domains of a device run batched, and each ring step copies to a device
+group only the packs of the other groups' domains that its own receive
+(mesh.Router.ring, the JAX version's ppermute); the argsorts are stable,
 as jnp.argsort is. On a CUDA card in float32 the residents are placed by
 the sharded form of the rebin kernels (ops/rebin_cuda.py), bit for bit
 the plain place_residents.

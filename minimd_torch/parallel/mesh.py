@@ -134,37 +134,70 @@ def make_mesh(devices, prd, grid: tuple[int, int, int] | None = None) -> Mesh:
 class Router:
     """Copies between the domains of a mesh, for tensors held per group
     (a list, one tensor per `mesh.groups` entry, its dim 0 running over
-    the group's domains in domain order). The index tensors are built
-    once per route and kept on their devices, so a copy queues no
-    host-to-device transfer (which would wait on the card)."""
+    the group's domains in domain order). A group receives from another
+    only the entries it reads (the counterpart of the JAX package's
+    per-hop ppermute): `pull` ships each source group's selection in one
+    index_select and one copy. The index tensors are built once per route
+    and kept on their devices, so a copy queues no host-to-device
+    transfer (which would wait on the card). With one group nothing is
+    copied."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.groups = mesh.groups
         self.pos = {k: p for p, k in enumerate(mesh.order)}
+        # domain -> (its group, its index in the group)
+        self.where = {k: (g, i) for g, (_, ks) in enumerate(self.groups)
+                      for i, k in enumerate(ks)}
         self._routes: dict = {}
 
-    def _index(self, src: tuple) -> list[torch.Tensor]:
-        if src not in self._routes:
-            self._routes[src] = [
-                torch.tensor([self.pos[src[k]] for k in ks], device=dev)
-                for dev, ks in self.groups]
-        return self._routes[src]
+    def pull(self, flat, sends, dim: int = 0) -> list[torch.Tensor]:
+        """Per group g: flat[g] followed, along dim, by the entries of
+        flat[s] that sends[g] lists for each other group s, as pairs (s,
+        index on s's device), in the order of sends[g]; each selection is
+        made on its source's device and copied once."""
+        out = []
+        for g, (dev, _) in enumerate(self.groups):
+            parts = [flat[g]] + [
+                flat[s].index_select(dim, i).to(
+                    dev, non_blocking=dev.type == "cuda")
+                for s, i in sends[g]]
+            out.append(parts[0] if len(parts) == 1
+                       else torch.cat(parts, dim=dim))
+        return out
 
-    def full(self, parts, g: int) -> torch.Tensor:
-        """Every domain's entries, in `mesh.order`, on group g's device
-        (with one group: parts[0] itself, no copy)."""
-        if len(parts) == 1:
-            return parts[0]
-        dev = self.groups[g][0]
-        return torch.cat([p.to(dev, non_blocking=True) for p in parts])
+    def _index(self, src: tuple):
+        """(sends, per group the index of each of its domains' sources in
+        the pulled tensor) of gather(src)."""
+        if src not in self._routes:
+            sends, idx = [], []
+            for g, (dev, ks) in enumerate(self.groups):
+                need = {}     # source group -> its distinct positions
+                for k in ks:
+                    s, i = self.where[src[k]]
+                    if s != g:
+                        need.setdefault(s, set()).add(i)
+                base, at, send = len(ks), {}, []
+                for s in sorted(need):
+                    rows = sorted(need[s])
+                    at.update({(s, i): base + r for r, i in enumerate(rows)})
+                    send.append((s, torch.tensor(rows,
+                                                 device=self.groups[s][0])))
+                    base += len(rows)
+                sends.append(send)
+                idx.append(torch.tensor(
+                    [self.where[src[k]][1] if self.where[src[k]][0] == g
+                     else at[self.where[src[k]]] for k in ks], device=dev))
+            self._routes[src] = (sends, idx)
+        return self._routes[src]
 
     def gather(self, parts, src) -> list[torch.Tensor]:
         """Per group: entry i (domain k = group's i-th) is the entry of
-        domain src[k] of `parts`."""
-        idx = self._index(tuple(src))
-        return [self.full(parts, g).index_select(0, idx[g])
-                for g in range(len(self.groups))]
+        domain src[k] of `parts`; a group receives only the entries of the
+        other groups' domains that its own read."""
+        sends, idx = self._index(tuple(src))
+        return [p.index_select(0, i) for p, i in
+                zip(self.pull(parts, sends), idx)]
 
     def ring(self, parts, name: str, j: int) -> list[torch.Tensor]:
         """Per domain k: the entry of the domain j steps along mesh axis
@@ -189,12 +222,13 @@ class Router:
     def domain_sum(self, parts) -> torch.Tensor:
         """The sum over every domain of `parts` (one value per domain),
         reduced in domain order on the first group's device (the psum of
-        the JAX package's mesh)."""
+        the JAX package's mesh: a few numbers a step)."""
         if len(self.groups) == 1:   # the group's order is domain order
             return parts[0].sum(dim=0)
+        dev = self.groups[0][0]
         if "sum" not in self._routes:
             self._routes["sum"] = torch.tensor(
-                [self.pos[k] for k in range(self.mesh.size)],
-                device=self.groups[0][0])
-        full = self.full(parts, 0)
+                [self.pos[k] for k in range(self.mesh.size)], device=dev)
+        full = torch.cat([p.to(dev, non_blocking=dev.type == "cuda")
+                          for p in parts])
         return full.index_select(0, self._routes["sum"]).sum(dim=0)

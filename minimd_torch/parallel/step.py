@@ -15,9 +15,11 @@ The reference's MPI machinery maps onto the domains of one process:
 make_exchanges gives the slab exchange as hooks of ops/pairgrid.py's
 to_padded_soa / pad_grid_int (the JAX package's _make_exchanges). A run
 does not call them every step: Halo applies them once per geometry to
-the slots' indices and to zeros, and each step's halo is then one gather
-of every domain's slots and one add of the image shifts (the exchange's
-own -prd / +prd, added as the hooks subtract them, so the bits agree).
+the slots' indices and to zeros, and each step's halo is then, per
+device group, one copy from each other group of the boundary slots its
+domains read (the per-hop ppermute's slabs), one gather and one add of
+the image shifts (the exchange's own -prd / +prd, added as the hooks
+subtract them, so the bits agree).
 """
 
 from __future__ import annotations
@@ -123,7 +125,15 @@ class Halo:
     sharded CUDA pair kernels (which wrap the other axes themselves).
     `shape` is the padded (Z, Y, X, C) and `nslots` its slot count; fold
     is the adjoint of the fill, for the half-neighbor paths' Newton folds.
-    `stamp` is set by a timed run (make_sharded_run)."""
+    `stamp` is set by a timed run (make_sharded_run).
+
+    A group reads its own domains' slots in place and receives from each
+    other group only the slots its padded fields read (`sends`: per
+    group, (source group, slots on the source's device) pairs, the sorted
+    distinct slots of the source's domains), as the JAX package's per-hop
+    ppermute ships the boundary slabs only; the fold ships each image's
+    value back to the group that owns its slot. One group builds no route
+    and copies nothing."""
 
     stamp = None
 
@@ -138,8 +148,8 @@ class Halo:
         Ml = lx * ly * lz * C
         self.nlocal = Ml
         ex = make_exchanges(mesh, geom.prd, h, nb_local)
-        pos = router.pos
-        ids = [(pos[k] * Ml + torch.arange(Ml, dtype=torch.int64)
+        # every padded slot's source as a global id, domain * Ml + slot
+        ids = [(k * Ml + torch.arange(Ml, dtype=torch.int64)
                 ).reshape(lz, ly, lx, C) for k in range(mesh.size)]
         idx = [g.reshape(-1) for g in _pad_halo(ids, h, 0.0, None, ex, wrap)]
         zeros = [torch.zeros((lz, ly, lx, C), dtype=dtype)] * mesh.size
@@ -150,12 +160,41 @@ class Halo:
         # nothing to pad (one domain, or no decomposed axis, for the
         # kernels): the positions are the domains' own
         self.identity = not wrap and not ex
+        where = router.where
+        grp = torch.tensor([where[k][0] for k in range(mesh.size)])
+        inner = torch.tensor([where[k][1] for k in range(mesh.size)])
+        self._ids = [torch.stack([idx[k] for k in ks])
+                     for _, ks in router.groups]            # (Dg, Mp)
         self.idx, self.idx3, self.shift = [], [], []
-        for dev, ks in router.groups:
-            i1 = torch.stack([idx[k] for k in ks])                # (Dg, Mp)
-            dom, slot = i1 // Ml, i1 % Ml
-            i3 = (dom[:, None] * 3 + torch.arange(3)[None, :, None]) * Ml \
+        self.sends, self.sends3 = [], []
+        for g, (dev, ks) in enumerate(router.groups):
+            ids_g = self._ids[g]
+            dom, slot = ids_g // Ml, ids_g % Ml
+            src, at = grp[dom], inner[dom]
+            i1 = at * Ml + slot            # into the group's own (Dg, Ml)
+            i3 = (at[:, None] * 3 + torch.arange(3)[None, :, None]) * Ml \
                 + slot[:, None]                                   # (Dg,3,Mp)
+            base1, base3 = len(ks) * Ml, len(ks) * 3 * Ml
+            send, send3 = [], []
+            for s in range(len(router.groups)):
+                mine = src == s
+                if s == g or not mine.any():
+                    continue
+                u, rank = torch.unique(at[mine] * Ml + slot[mine],
+                                       return_inverse=True)
+                n = u.numel()
+                sdev = router.groups[s][0]
+                send.append((s, u.to(sdev)))
+                # the 3 coordinates of each slot, coordinate-major
+                u3 = ((u // Ml * 3)[None] + torch.arange(3)[:, None]) * Ml \
+                    + u % Ml
+                send3.append((s, u3.reshape(-1).to(sdev)))
+                i1[mine] = base1 + rank
+                i3.permute(0, 2, 1)[mine] = (base3 + rank[:, None]
+                                             + n * torch.arange(3)[None])
+                base1, base3 = base1 + n, base3 + 3 * n
+            self.sends.append(send)
+            self.sends3.append(send3)
             self.idx.append(i1.reshape(-1).to(dev))
             self.idx3.append(i3.reshape(-1).to(dev))
             self.shift.append(torch.stack([shift[k] for k in ks]).to(dev))
@@ -163,14 +202,29 @@ class Halo:
                 zip(nb_local, mesh.decomposed)]
         self.shape = (dims[2], dims[1], dims[0], C)
 
+    def received(self, g: int) -> int:
+        """The slots group g receives from the other groups per field and
+        fill (positions: 3 values each), read from its routes."""
+        return sum(int(i.numel()) for _, i in self.sends[g])
+
+    def returned(self, g: int) -> int:
+        """The values per component that group g ships back to the other
+        groups per fold (each image of their slots in its padded fields),
+        read from the fold's routes."""
+        if not self._tables:
+            self._build_fold()
+        return sum(int(i.numel()) for ship in self._ship for s, i in ship
+                   if s == g)
+
     @_comm
     def positions(self, xs):
         """Per group (Dg, 3, nslots): the padded positions of its domains
         from every domain's (D, 3, M_local) positions."""
         if self.identity:
             return list(xs)
-        return [self.router.full(xs, g).reshape(-1).take(i3).reshape(s.shape)
-                + s for g, (i3, s) in enumerate(zip(self.idx3, self.shift))]
+        flat = self.router.pull([x.reshape(-1) for x in xs], self.sends3)
+        return [f.take(i3).reshape(s.shape) + s
+                for f, i3, s in zip(flat, self.idx3, self.shift)]
 
     @_comm
     def scalars(self, ts):
@@ -178,10 +232,9 @@ class Halo:
         unshifted."""
         if self.identity:
             return list(ts)
-        return [self.router.full(ts, g).reshape(-1).take(i).reshape(
-            len(ks), self.nslots)
-                for g, (i, (_, ks)) in enumerate(zip(self.idx,
-                                                     self.router.groups))]
+        flat = self.router.pull([t.reshape(-1) for t in ts], self.sends)
+        return [f.take(i).reshape(len(ks), self.nslots)
+                for f, i, (_, ks) in zip(flat, self.idx, self.groups)]
 
     @_comm
     def fold(self, parts):
@@ -191,47 +244,85 @@ class Halo:
         owns it (an interior slot onto itself). This is the reference's
         reverse communication (comm.cpp:320-361): the JAX package's fold
         hooks on decomposed axes and its periodic self-fold elsewhere, in
-        one gather per group. Each slot sums its images in the order of
-        their padded positions (fold_table), where the JAX folds add slab
-        by slab, so the results agree to summation order; the order is
-        fixed, so a run repeats bit for bit on the card (where index_add_
-        would add with atomics). A mesh of several groups sums the groups'
-        parts in group order on the first one's device."""
+        one gather per group. Each group ships the values of its images of
+        another group's slots to that group, one value per image, and the
+        owner sums each slot's images on its own device in a fixed order,
+        by the image's domain, then by its padded position (fold_table):
+        the rows do not depend on how the domains lie on devices, and a
+        run repeats bit for bit on the card (where index_add_ would add
+        with atomics). The JAX folds add slab by slab, so the results
+        agree with them to summation order."""
         vec = parts[0].dim() == 3
-        D, Ml = self.router.mesh.size, self.nlocal
-        total = None
-        for g, p in enumerate(parts):
-            flat = (p.transpose(0, 1).reshape(3, -1) if vec
-                    else p.reshape(1, -1))
-            flat = torch.cat([flat, flat.new_zeros((len(flat), 1))], dim=1)
-            acc = flat[:, self.fold_table(g)].sum(dim=1)   # (c, D * Ml)
-            acc = acc.reshape(-1, D, Ml).transpose(0, 1)
-            total = acc if total is None else total + acc.to(total.device)
-        out, start = [], 0
-        for dev, ks in self.groups:
-            part = total[start:start + len(ks)]
-            out.append((part if vec else part[:, 0]).to(dev))
-            start += len(ks)
+        Ml = self.nlocal
+        if not self._tables:
+            self._build_fold()
+        flat = [p.transpose(0, 1).reshape(3, -1) if vec else p.reshape(1, -1)
+                for p in parts]
+        out = []
+        for g, (buf, (_, ks)) in enumerate(zip(
+                self.router.pull(flat, self._ship, dim=1), self.groups)):
+            buf = torch.cat([buf, buf.new_zeros((len(buf), 1))], dim=1)
+            acc = buf[:, self._tables[g]].sum(dim=1)    # (c, Dg * Ml)
+            acc = acc.reshape(-1, len(ks), Ml).transpose(0, 1)
+            out.append(acc if vec else acc[:, 0])
         return out
 
     def fold_table(self, g: int) -> torch.Tensor:
-        """(K, D * M_local) on group g's device, built once: for each slot
-        of every domain (in mesh.order), the positions in group g's
-        flattened padded field (Dg * nslots) that are images of it, in
-        increasing order, and after them the position one past the end
-        (a zero)."""
-        if g not in self._tables:
-            i = self.idx[g].cpu()
-            n = i.numel()
-            order = torch.argsort(i, stable=True)
-            ts = i[order]
-            rank = torch.arange(n) - torch.searchsorted(ts, ts)
-            table = torch.full((int(rank.max()) + 1,
-                                self.router.mesh.size * self.nlocal), n,
-                               dtype=torch.int64)
-            table[rank, ts] = order
-            self._tables[g] = table.to(self.groups[g][0])
+        """(K, Dg * M_local) on group g's device, built once with every
+        group's: for each slot of the group's domains, the positions of
+        its images in the group's fold input (its own flattened padded
+        field, Dg * nslots, then what each other group ships it, in group
+        order), by the image's domain and then its padded position, and
+        after them the position one past the end (a zero). K is the most
+        images of any slot of the mesh, the same for every group."""
+        if not self._tables:
+            self._build_fold()
         return self._tables[g]
+
+    def _build_fold(self):
+        """The fold tables, and `_ship`: per owner group, the (holder
+        group, sorted positions in the holder's flattened padded field)
+        of the images of the owner's slots that another group holds."""
+        where, Ml, Mp = self.router.where, self.nlocal, self.nslots
+        D = self.router.mesh.size
+        grp = torch.tensor([where[k][0] for k in range(D)])
+        inner = torch.tensor([where[k][1] for k in range(D)])
+        own, key, hold, fpos = [], [], [], []
+        for g, (_, ks) in enumerate(self.groups):
+            n = len(ks) * Mp
+            own.append(self._ids[g].reshape(-1))
+            pos = torch.arange(n)
+            key.append(torch.tensor(ks).repeat_interleave(Mp) * Mp
+                       + pos % Mp)
+            hold.append(torch.full((n,), g))
+            fpos.append(pos)
+        own, key, hold, fpos = (torch.cat(t) for t in (own, key, hold, fpos))
+        ogrp = grp[own // Ml]
+        at = fpos.clone()      # each image's position in its owner's input
+        self._ship, nbuf = [], []
+        for o, (_, ks) in enumerate(self.groups):
+            base, ship = len(ks) * Mp, []
+            for s in range(len(self.groups)):
+                mine = (ogrp == o) & (hold == s)
+                if s == o or not mine.any():
+                    continue
+                sel, rank = torch.unique(fpos[mine], return_inverse=True)
+                ship.append((s, sel.to(self.groups[s][0])))
+                at[mine] = base + rank
+                base += sel.numel()
+            self._ship.append(ship)
+            nbuf.append(base)
+        order = torch.argsort(key, stable=True)
+        order = order[torch.argsort(own[order], stable=True)]
+        so = own[order]
+        rank = torch.arange(len(so)) - torch.searchsorted(so, so)
+        K = int(rank.max()) + 1
+        local = inner[so // Ml] * Ml + so % Ml
+        for o, (dev, ks) in enumerate(self.groups):
+            mine = grp[so // Ml] == o
+            table = torch.full((K, len(ks) * Ml), nbuf[o], dtype=torch.int64)
+            table[rank[mine], local[mine]] = at[order][mine]
+            self._tables[o] = table.to(dev)
 
 
 def sharded_force_path(forcetype: int, *, cuda: bool, dtype, reach: int,
@@ -239,9 +330,9 @@ def sharded_force_path(forcetype: int, *, cuda: bool, dtype, reach: int,
     """The force a decomposed run takes on a device: sim.force_path's
     choice (the sharded forms of the LJ and EAM kernels for float32 and
     stencil reach 1 on the card, LJ with type-uniform parameters; else
-    the plain grids), but the plain EAM grid where one device would take
-    the exact splines: the JAX package's sharded EAM has no exact-spline
-    form."""
+    the plain grids), but the plain EAM
+    grid where one device would take the exact splines: the JAX package's
+    sharded EAM has no exact-spline form."""
     from ..sim import force_path
 
     path = force_path(forcetype, cuda=cuda, dtype=dtype, reach=reach,

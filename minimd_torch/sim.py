@@ -6,19 +6,22 @@ sequence, ref/integrate.cpp:70-207 / ref/ljs.cpp:385-468), LJ and EAM.
 never waits for it: the thermo trace and the rebin overflow counts stay
 in a device tensor until the one host sync at the end of the run.
 
-The device decides the path (force_path, the JAX package's own choice
-with the card in the place of the TPU). On CUDA, in float32 with stencil
-reach 1: the LJ kernel (ops/lj_cuda.py, type-uniform parameters) or the
-two EAM kernels (ops/eam_cuda.py) and, when every axis has at least 3
-cells, the rebin kernels (ops/rebin_cuda.py); smaller grids use the
-sort-based rebin_lean, the JAX package's own geometry rule. Outside that
-envelope the card runs what the JAX package runs on its accelerator: the
-plain LJ grid (ops/lj_grid.py) for float64, reach > 1 or per-type
-tables; the plain EAM grid (ops/eam_grid.py) for float32 with reach > 1;
-the exact-spline EAM force (ops/eam.py) for float64. On the CPU: the
-plain LJ grid, the exact-spline EAM force (what the JAX package runs on
-its CPU) and cells.rebin_local / rebin_lean, in any dtype, on
-constants built once per geometry on the device.
+The device and the shapes decide the path (force_path, rebin_path: the
+JAX package's own choice with the card in the place of the TPU). On
+CUDA, in float32 with stencil reach 1, at any cell capacity: the LJ
+kernel (ops/lj_cuda.py, type-uniform parameters) or the two EAM kernels
+(ops/eam_cuda.py) and, when every axis has at least 3 cells, the rebin
+kernels (ops/rebin_cuda.py); smaller grids use the sort-based
+rebin_lean, the JAX package's own geometry rule. Outside that envelope
+the card runs what the JAX package runs on its accelerator: the plain LJ
+grid (ops/lj_grid.py) for float64, reach > 1 or per-type tables; the
+plain EAM grid (ops/eam_grid.py) for float32 with reach > 1; the
+exact-spline EAM force (ops/eam.py) for float64; the plain rebin
+(cells.rebin_local) for float64. A capacity overflow grows the cells to
+next_capacity, as the JAX package grows them, past cells.MAX_CAPACITY
+once. On the CPU: the plain LJ grid, the exact-spline EAM force (what
+the JAX package runs on its CPU) and cells.rebin_local / rebin_lean, in
+any dtype, on constants built once per geometry on the device.
 
 fused_step=True (LJ, f32, thermo_nstat > 0, as in the JAX package) runs
 each interval's plain steps through the fused step (ops/lj_step_cuda.py on
@@ -78,6 +81,20 @@ def force_path(forcetype: int, *, cuda: bool, dtype, reach: int,
             return "eam_cuda" if reach == 1 else "eam_grid"
         return "eam"
     raise ValueError(f"unknown forcetype {forcetype}")
+
+
+def rebin_path(geom: cells.CellGeometry, *, cuda: bool, dtype) -> str:
+    """The rebin a Simulation takes: "rebin_cuda", the rebin kernels, for
+    float32 on the card with at least 3 cells on every axis (any capacity);
+    else "rebin_local", the plain pull (a float64 state on the card takes
+    it, as the JAX package's Pallas pull is f32 only), or "rebin_lean", the
+    sort-based placement, under 3 cells on an axis, where the +-1 pull would
+    alias cells (the JAX package's own geometry rule)."""
+    if min(geom.nb) < 3:
+        return "rebin_lean"
+    if cuda and dtype == torch.float32:
+        return "rebin_cuda"
+    return "rebin_local"
 
 
 @dataclasses.dataclass
@@ -212,35 +229,34 @@ class Simulation:
         cuda = self.device.type == "cuda"
         self.force_fn, self.force_fn_noev = self._make_force(geom, cuda)
         if self.fused_step:
-            if cuda:
-                from .ops.lj_step_cuda import make_lj_step_cuda as make_step
-            else:
-                from .ops.lj_step import make_lj_step_plain as make_step
-            self.step_fn, self.seed_fn = make_step(
-                geom, self.params, self.inp.dt, self.dtforce, self.dtype,
-                self.device)
-        if cuda and self.dtype == torch.float32 and min(geom.nb) >= 3:
-            from .ops.rebin_cuda import make_rebin_cuda
-            self.rebin_fn = make_rebin_cuda(geom, self.device)
+            self.step_fn, self.seed_fn = self._make_step(geom, cuda)
+        self.rebin_fn = self._make_rebin(geom, cuda)
+
+    def _make_step(self, geom: cells.CellGeometry, cuda: bool):
+        """(step, seed) of the fused step: its kernel on the card."""
+        if cuda:
+            from .ops.lj_step_cuda import make_lj_step_cuda as make_step
         else:
-            # under 3 cells on an axis the +-1 pull would alias cells:
-            # sort-based placement; a float64 state on the card takes the
-            # plain pull, as the JAX package's Pallas pull is f32 only.
-            # The constants are built once per geometry.
-            rebin = cells.rebin_lean if min(geom.nb) < 3 else \
-                cells.rebin_local
-            self.rebin_fn = functools.partial(
-                rebin, geom=geom, consts=cells.RebinConstants.build(
-                    geom, self.dtype, self.device))
+            from .ops.lj_step import make_lj_step_plain as make_step
+        return make_step(geom, self.params, self.inp.dt, self.dtforce,
+                         self.dtype, self.device)
+
+    def _make_rebin(self, geom: cells.CellGeometry, cuda: bool):
+        """The rebin closure on the path rebin_path picks; the plain
+        rebins' constants are built once per geometry."""
+        path = rebin_path(geom, cuda=cuda, dtype=self.dtype)
+        if path == "rebin_cuda":
+            from .ops.rebin_cuda import make_rebin_cuda
+            return make_rebin_cuda(geom, self.device)
+        rebin = cells.rebin_lean if path == "rebin_lean" else \
+            cells.rebin_local
+        return functools.partial(
+            rebin, geom=geom, consts=cells.RebinConstants.build(
+                geom, self.dtype, self.device))
 
     def _make_force(self, geom: cells.CellGeometry, cuda: bool):
         """(force_ev, force_noev) for a geometry on this device, on the
         path that force_path picks."""
-        if (cuda and self.fused_step
-                and geom.capacity > cells.MAX_CAPACITY):
-            raise NotImplementedError(
-                f"a fused-step CUDA run with capacity > {cells.MAX_CAPACITY} "
-                "is not ported to minimd_torch yet (ROADMAP queue 2 item 6)")
         path = force_path(
             self.inp.forcetype, cuda=cuda, dtype=self.dtype,
             reach=halo_extent(geom), half_neigh=self.half_neigh,
@@ -405,8 +421,7 @@ class Simulation:
             # semantics (neighbor.cpp:186-208): the overflowed trajectory
             # dropped atoms, so restart from the pre-run state
             old_nb, old_cap = self.geom.nb, self.geom.capacity
-            grown = min(cells.next_capacity(old_cap), cells.MAX_CAPACITY)
-            self._regrow(before, grown, retune=True)
+            self._regrow(before, cells.next_capacity(old_cap), retune=True)
             print(f"# resize: grid {old_nb} C={old_cap} -> {self.geom.nb} "
                   f"C={self.geom.capacity} (rebin overflow), replaying")
             return self._run(ntimes)

@@ -254,6 +254,9 @@ def _digest(*outs):
     return h.hexdigest()[:16]
 
 
+PARITY_SHAPES = ("4k", "131k", "864k", "cap64", "s6_nb2", "cap512")
+
+
 def lj_parity_worker(runs):
     """One process of lj-parity: output hashes, kernel times and rates of
     the minimd_torch on sys.path."""
@@ -298,7 +301,10 @@ def lj_parity_worker(runs):
         hashes[f"rebin {label} x v typ overflow"] = _digest(
             *make_rebin_cuda(geom, "cuda")(xp, st.v, st.typ))
 
-    for label, (s, nbins, cap) in LJ_SHAPES.items():
+    # chip_smoke's shapes up to C = 512, which a parent before the
+    # kernels took any capacity runs too
+    for label in PARITY_SHAPES:
+        s, nbins, cap = LJ_SHAPES[label]
         inp, geom, st, xp = lattice(s, nbins, cap)
         if min(geom.nb) >= 3:
             rebin_hash(label, geom, st, xp)

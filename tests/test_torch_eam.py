@@ -214,10 +214,17 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(tables, lattice):
     assert int(np.abs(fine.stencil).max()) == 2
     with pytest.raises(ValueError, match="stencil reach"):
         eam_cuda.make_eam_rho_cuda(fine, tables, device="cpu")
-    big = cells.build_geometry(geom.prd, 5.95, np.zeros((1, 3)),
+    # no capacity is refused: past C = 512 the kernels hand their stage
+    # over in parts, and on a CPU tensor the wrappers run the plain grid
+    pos = np.random.default_rng(0).uniform(0, 1, (300, 3)) * geom.prd
+    big = cells.build_geometry(geom.prd, 5.95, pos, nbins=(1, 1, 1),
                                capacity=cells.MAX_CAPACITY + 8)
-    with pytest.raises(ValueError, match="capacity"):
-        eam_cuda.make_eam_pair_cuda(big, tables, device="cpu")
+    st = init_state(pos, pos * 0, np.zeros(300, np.int32), big,
+                    dtype=torch.float32)
+    got = eam_cuda.make_eam_force_cuda(big, tables, device="cpu")[0]
+    want = make_eam_force_grid(big, tables, device="cpu")[0]
+    assert all(torch.equal(a, b) for a, b in zip(got(st.x, st.typ),
+                                                 want(st.x, st.typ)))
 
 
 @pytest.mark.cuda

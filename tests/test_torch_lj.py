@@ -157,10 +157,18 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     assert int(np.abs(fine.stencil).max()) == 2
     with pytest.raises(ValueError, match="stencil reach"):
         make_lj_force_cuda(fine, params, torch.float32, "cpu")
-    big = cells.build_geometry(geom.prd, inp.neigh_cut, np.zeros((1, 3)),
+    # no capacity is refused: past C = 512 the kernel hands its stage
+    # over in parts, and on a CPU tensor the wrapper runs the plain grid
+    pos = np.random.default_rng(0).uniform(0, 1, (300, 3)) * geom.prd
+    big = cells.build_geometry(geom.prd, inp.neigh_cut, pos,
+                               nbins=(1, 1, 1),
                                capacity=cells.MAX_CAPACITY + 8)
-    with pytest.raises(ValueError, match="capacity"):
-        make_lj_force_cuda(big, params, torch.float32, "cpu")
+    st = init_state(pos, pos * 0, np.zeros(300, np.int32), big,
+                    dtype=torch.float32)
+    got = make_lj_force_cuda(big, params, torch.float32, "cpu")[0]
+    want = make_lj_force_grid(big, params, torch.float32, "cpu")[0]
+    assert all(torch.equal(a, b) for a, b in zip(got(st.x, st.typ),
+                                                 want(st.x, st.typ)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,6 +6,8 @@ the state carried across. The meshes are lists of CPU domains
 (devices=["cpu"] * k); the JAX package runs on the conftest's 8 virtual
 CPU devices."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,10 +47,11 @@ def _domains(grid):
     return m, mesh.Router(m)
 
 
-def _system(s, nbins, deck="lj", ntypes=1, kick=0.0, seed=3):
+def _system(s, nbins, deck="lj", ntypes=1, kick=0.0, seed=3,
+            capacity=None):
     """(inp, geom, MDState) at float64: the deck's lattice of s^3 cells,
     ntypes types (create.assign_types), each coordinate kicked by up to
-    +-kick, laid out by init_state on the grid nbins."""
+    +-kick, laid out by init_state on the grid nbins (and capacity)."""
     inp = builtin_deck(deck)
     inp.nx = inp.ny = inp.nz = s
     prd, x, v, typ, _ = create.setup_system(inp, ntypes, None)
@@ -56,7 +59,8 @@ def _system(s, nbins, deck="lj", ntypes=1, kick=0.0, seed=3):
         typ = np.zeros(len(x), np.int32)
     x = x + kick * np.random.default_rng(seed).uniform(-1, 1, x.shape)
     x = np.mod(x, prd)
-    geom = cells.build_geometry(prd, inp.neigh_cut, x, nbins=nbins)
+    geom = cells.build_geometry(prd, inp.neigh_cut, x, nbins=nbins,
+                                capacity=capacity)
     return inp, geom, init_state(x, v, typ, geom, dtype=F64)
 
 
@@ -510,22 +514,117 @@ def test_state_round_trip(lj_runs):
     assert not torch.equal(clone.x[0], ss.x[0])
 
 
-def test_device_groups_match_one_group():
+def _groups_deck(case):
+    """(deck, nbins, steps, half_neigh) of a two-group case: LJ on 2 cells
+    a domain (LJ_GRID), EAM on its autotuned grid, a migration every 5
+    steps and a row every 5 in the short runs."""
+    if case.startswith("lj"):
+        return _lj_deck(), LJ_GRID, 40, case.endswith("half")
+    inp = builtin_deck("eam")
+    inp.nx = inp.ny = inp.nz = 5
+    inp.neigh_every = inp.thermo_nstat = 5
+    return inp, None, 10, case.endswith("half")
+
+
+@pytest.mark.parametrize("case", ["lj", "lj-half", "eam", "eam-half"])
+def test_device_groups_match_one_group(case):
     """Domains on two devices ("cpu:0" and "cpu:1" are two groups here,
     interleaved in domain order, as on two cards) run the copies between
-    groups and the domain-order sums: rows and the gathered state equal
-    those of one group, bit for bit."""
-    inp = _lj_deck()
+    groups (each group receives only the slabs its halo reads, ships its
+    Newton shells back to their owners, and receives its ring neighbors'
+    leaver packs) and the domain-order sums: rows and the gathered state
+    equal those of one group, bit for bit, on the full and the half
+    (gn=1) paths, the fold summing each slot's images in one order
+    whatever the groups."""
+    inp, nbins, steps, half = _groups_deck(case)
     runs = [ShardedSimulation.from_input(inp, devices=devs, dtype=F64,
-                                         nbins=LJ_GRID)
+                                         nbins=nbins, half_neigh=half)
             for devs in (["cpu"] * 8, ["cpu:0", "cpu:1"] * 4)]
     assert [len(r.router.groups) for r in runs] == [1, 2]
     assert runs[1].mesh.order == [0, 2, 4, 6, 1, 3, 5, 7]
-    a, b = (r.run(40) for r in runs)
+    a, b = (r.run(steps) for r in runs)
     np.testing.assert_array_equal(a, b)
     for k in ("x", "v", "f", "typ", "valid"):
         assert torch.equal(getattr(runs[0].state, k),
                            getattr(runs[1].state, k)), k
+    assert int(runs[1].state.valid.sum()) == runs[1].natoms
+
+
+def test_migration_ships_ring_neighbors_only():
+    """The migration on a (4,2,1) mesh whose two groups hold the x halves
+    (ix 0-1 on "cpu:0", 2-3 on "cpu:1"): bit for bit the one-group
+    migration, and on every ring step each group receives the leaver
+    packs of exactly the other group's domains that its own domains
+    receive from: 2 of the 4 on the x ring, none on the y ring."""
+    grid, nbins = (4, 2, 1), (8, 4, 4)
+    _, geom, st = _system(8, nbins, ntypes=4)
+    x = st.x.clone()
+    valid = st.valid.numpy()
+    rng = np.random.default_rng(11)
+    x[:, valid] += torch.as_tensor(rng.uniform(-0.6, 0.6, (3, valid.sum())))
+    outs, routers = [], []
+    for devs in (["cpu"] * 8, ["cpu:0", "cpu:0", "cpu:1", "cpu:1"] * 2):
+        m = mesh.make_mesh(devs, (1.0, 1.0, 1.0), grid)
+        router = mesh.Router(m)
+        nl = step.local_grid_shape(geom, m)
+        ss = sharded_from_grid(*(_grid(t, geom) for t in (
+            x, st.v, st.v, st.typ, st.valid)), m, geom, F64)
+        ex = comm.make_exchange_rebin(geom, m, router, nl, F64)
+        ox, ov, ot, ook, ovf = ex(ss.x, ss.v, ss.typ, ss.valid)
+        outs.append(sharded_to_grid(ss.__class__(ox, ov, ov, ot, ook), m,
+                                    geom) + (np.stack([o.numpy() for o in
+                                                       router.split(ovf)]),))
+        routers.append(router)
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    assert outs[0][-1].sum() == 0 and outs[0][4].sum() == valid.sum()
+    router = routers[1]
+    assert [ks for _, ks in router.groups] == [[0, 1, 4, 5], [2, 3, 6, 7]]
+    m = router.mesh
+    rings = {(a, j): tuple(m.ring(k, a, j) for k in range(8))
+             for a in ("x", "y") for j in (1, -1)}
+    # the y ring's two directions are one permutation of two domains
+    assert set(router._routes) == set(rings.values())
+    for src, (sends, _) in router._routes.items():
+        x_ring = src in (rings["x", 1], rings["x", -1])
+        for g, (_, ks) in enumerate(router.groups):
+            want = sorted({src[k] for k in ks} - set(ks))
+            got = sorted(router.groups[s][1][int(i)] for s, idx in sends[g]
+                         for i in idx)
+            assert got == want
+            assert len(got) == (2 if x_ring else 0)
+
+
+def test_sharded_wrappers_take_any_capacity():
+    """Past C = cells.MAX_CAPACITY the sharded kernel wrappers are made
+    as below it (the kernels take any capacity, as the JAX package's
+    do): at C = 520 the sharded LJ wrapper on CPU tensors equals the
+    decomposed run's plain forces, and the sharded EAM and rebin wrappers
+    are made for the same domains."""
+    from minimd_torch.config import FORCE_LJ
+
+    _, geom, st = _system(6, (3, 2, 2), kick=0.05,
+                          capacity=cells.MAX_CAPACITY + 8)
+    x32 = st.x.float()
+    m, router = _domains((1, 2, 2))
+    nl = step.local_grid_shape(geom, m)
+    ss = sharded_from_grid(*(_grid(t, geom) for t in (
+        x32, st.v.float(), x32 * 0, st.typ, st.valid)), m, geom)
+    params = LJParams.from_deck(1, 1.0, 1.0, 2.5)
+    kh = step.Halo(geom, m, router, 1, nl, torch.float32, wrap=False)
+    fev = make_lj_force_cuda(geom, params, nb_local=nl,
+                             decomposed=m.decomposed, device="cpu")[0]
+    force = step.make_domain_force(FORCE_LJ, geom, params, m, router, nl,
+                                   torch.float32)
+    want, e_want, w_want = force(ss.x, ss.typ, True)
+    f, e, w = fev(kh.positions(ss.x)[0], None)
+    assert torch.equal(f, want[0])
+    assert torch.equal(e, e_want[0]) and torch.equal(w, w_want[0])
+    tables = EAMTables.from_funcfl()
+    for make in (make_eam_rho_cuda, make_eam_pair_cuda):
+        make(geom, tables, nb_local=nl, decomposed=m.decomposed,
+             device="cpu")
+    make_rebin_cuda(geom, "cpu", nb_local=nl, decomposed=m.decomposed)
 
 
 def test_surface_refusals():

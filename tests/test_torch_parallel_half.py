@@ -176,6 +176,47 @@ def test_fold_is_the_adjoint_of_the_halo(grid):
     assert abs(lhs - rhs) <= 1e-12 * abs(rhs)
 
 
+@pytest.mark.parametrize("nb", [(8, 8, 8), (12, 12, 12)])
+def test_two_groups_ship_boundary_slabs_only(nb):
+    """The halo of a (2,2,2) mesh whose two groups hold the x parities,
+    h = 1, L cells a domain side: each group receives per field exactly
+    the two boundary layers of the other group's 4 domains, 8 L^2 C
+    distinct slots (where the whole of them is 4 L^3 C), and ships back
+    per fold one value for each of its padded slots that is an image of
+    the other group's, 8 (L+2)^2 C, both read from the routes' index
+    tensors. Positions, scalars and both folds equal the one-group
+    halo's bit for bit."""
+    inp = _deck("lj", 8)
+    prd, x, _, _, _ = create.setup_system(inp, 1, None)
+    geom = cells.build_geometry(prd, inp.neigh_cut, x, nbins=nb)
+    halos = []
+    for devs in (["cpu"] * 8, ["cpu:0", "cpu:1"] * 4):
+        m = mesh.make_mesh(devs, prd, (2, 2, 2))
+        r = mesh.Router(m)
+        halos.append(step.Halo(geom, m, r, 1, step.local_grid_shape(geom, m),
+                               F64))
+    one, two = halos
+    L, C = nb[0] // 2, geom.capacity
+    assert [len(h.groups) for h in halos] == [1, 2]
+    assert one.sends == [[]] and one.returned(0) == 0
+    for g in range(2):
+        assert two.received(g) == 8 * L * L * C < 4 * L ** 3 * C
+        assert [int(i.numel()) for _, i in two.sends3[g]] == \
+            [3 * 8 * L * L * C]
+        assert two.returned(g) == 8 * (L + 2) ** 2 * C
+    r = two.router
+    rng = np.random.default_rng(7)
+    for shape in ((8, 3, one.nlocal), (8, one.nlocal)):
+        u = torch.from_numpy(rng.normal(size=shape))
+        p = torch.from_numpy(rng.normal(size=shape[:-1] + (one.nslots,)))
+        fill = one.positions if len(shape) == 3 else one.scalars
+        fill2 = two.positions if len(shape) == 3 else two.scalars
+        for want, got in ((fill([u])[0], fill2(r.stack(list(u)))),
+                          (one.fold([p])[0], two.fold(r.stack(list(p))))):
+            for k, t in enumerate(r.split(got)):
+                assert torch.equal(t, want[k])
+
+
 def test_half_refusals():
     """A decomposed axis narrower than the halo has no Newton fold (the
     JAX package's _make_folds assertion), for LJ -gn 1 and EAM; -gn 0

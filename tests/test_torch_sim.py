@@ -18,8 +18,9 @@ from minimd_tpu.config import builtin_deck
 from minimd_tpu.validate import compare_traces, parse_golden
 from minimd_torch import cli, create
 from minimd_torch.config import FORCE_EAM, FORCE_LJ
-from minimd_torch.sim import Simulation, force_path
-from minimd_torch.state import geometry_from_reference, state_from_reference
+from minimd_torch.sim import Simulation, force_path, rebin_path
+from minimd_torch.state import (geometry_from_reference, init_state,
+                                state_from_reference)
 
 torch.set_num_threads(2)
 
@@ -321,13 +322,14 @@ def test_force_path_follows_the_jax_selection(forcetype, cuda, dtype, reach,
             == (got == "lj_cuda")
 
 
-def test_card_force_paths_outside_the_kernels():
+def test_card_force_paths_outside_the_kernels(monkeypatch):
     """Simulation._make_force as on the card (cuda=True) builds, outside
     the kernels' envelope, the plain closures the JAX package runs on its
     accelerator, and they run here on CPU tensors: float64 LJ on the LJ
     grid and float32 EAM at stencil reach 2 on the EAM grid, each equal
-    to its plain factory's; a fused step past cells.MAX_CAPACITY stays
-    refused on the card."""
+    to its plain factory's; a fused step past cells.MAX_CAPACITY is no
+    longer refused on the card: it builds the LJ and fused-step kernels,
+    whose closures equal the plain versions on CPU tensors."""
     from minimd_torch.cells import MAX_CAPACITY
     from minimd_torch.ops.eam_grid import make_eam_force_grid
     from minimd_torch.ops.lj_grid import make_lj_force_grid
@@ -345,7 +347,149 @@ def test_card_force_paths_outside_the_kernels():
         for g, w in pair:
             assert all(torch.equal(a, b) for a, b in zip(g(x, typ),
                                                          w(x, typ)))
-    fused = Simulation.from_input(_deck(6), device="cpu", fused_step=True)
+    fused = Simulation.from_input(_deck(2), device="cpu", fused_step=True,
+                                  nbins=(1, 1, 1))
     big = dataclasses.replace(fused.geom, capacity=MAX_CAPACITY + 8)
-    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
-        fused._make_force(big, cuda=True)
+    made = _spy_kernel_factories(monkeypatch)
+    st = init_state(*_lattice_arrays(_deck(2)), big, dtype=F32)
+    got_f = fused._make_force(big, cuda=True)
+    want_f = make_lj_force_grid(big, fused.params, F32, "cpu")
+    for g, w in zip(got_f, want_f):
+        assert all(torch.equal(a, b) for a, b in zip(g(st.x, st.typ),
+                                                     w(st.x, st.typ)))
+    _equal_steps(fused, big, st)
+    assert made == ["lj_force", "lj_step"]
+
+
+def _lattice_arrays(inp):
+    """(x, v, typ) of a deck's lattice, as numpy arrays."""
+    _, x, v, typ, _ = create.setup_system(inp)
+    return x, v, typ
+
+
+def _spy_kernel_factories(monkeypatch):
+    """Records, in the list returned, the kernel wrappers' factories that
+    Simulation calls (it imports them when it builds a path), each still
+    making its closures."""
+    from minimd_torch.ops import eam_cuda, lj_cuda, lj_step_cuda, rebin_cuda
+
+    made = []
+    for mod, name, key in ((lj_cuda, "make_lj_force_cuda", "lj_force"),
+                           (eam_cuda, "make_eam_force_cuda", "eam_force"),
+                           (lj_step_cuda, "make_lj_step_cuda", "lj_step"),
+                           (rebin_cuda, "make_rebin_cuda", "rebin")):
+        def spy(*args, _make=getattr(mod, name), _key=key, **kw):
+            made.append(_key)
+            return _make(*args, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    return made
+
+
+def _equal_steps(sim, geom, st):
+    """The fused step _make_step builds for `geom` as on the card, against
+    make_lj_step_plain's, over two chained steps from the seed: equal."""
+    from minimd_torch.ops.lj_step import make_lj_step_plain
+
+    got = sim._make_step(geom, cuda=True)
+    want = make_lj_step_plain(geom, sim.params, sim.inp.dt, sim.dtforce,
+                              F32, "cpu")
+    f = sim._make_force(geom, cuda=False)[0](st.x, st.typ)[0]
+    outs = []
+    for step, seed in (got, want):
+        x, w = seed(st.x.clone(), st.v.clone(), f)
+        for evflag in (True, False):
+            x, w, *rest = step(x, w, evflag)
+        outs.append((x, w, *rest))
+    for a, b in zip(*outs):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+@pytest.mark.parametrize("deck", ["lj", "eam"])
+@pytest.mark.parametrize("over", [0, 8], ids=["512", "520"])
+def test_card_runs_the_kernels_past_512(deck, over, monkeypatch):
+    """The capacity is no term of the path choice, as in the JAX package:
+    with cuda=True, at C = cells.MAX_CAPACITY and at MAX_CAPACITY + 8,
+    Simulation builds the LJ or EAM kernels, the rebin kernels and (LJ)
+    the fused-step kernel, whose closures run here on CPU tensors and
+    equal their plain versions' outputs."""
+    from minimd_torch import cells
+    from minimd_torch.ops.eam_grid import make_eam_force_grid
+    from minimd_torch.ops.lj_grid import make_lj_force_grid
+
+    lj = deck == "lj"
+    inp = _deck(2, deck)    # one cell of reach 1: few pairs at C = 520
+    sim = Simulation.from_input(inp, device="cpu", nbins=(1, 1, 1),
+                                fused_step=lj)
+    geom = dataclasses.replace(sim.geom,
+                               capacity=cells.MAX_CAPACITY + over)
+    # the rebin kernels need 3 cells an axis (rebin_lean below)
+    grid3 = cells.build_geometry(sim.geom.prd, inp.neigh_cut,
+                                 _lattice_arrays(inp)[0], nbins=(3, 3, 3),
+                                 capacity=geom.capacity)
+    assert int(np.abs(geom.stencil).max()) == 1
+    ft = FORCE_LJ if lj else FORCE_EAM
+    assert force_path(ft, cuda=True, dtype=F32, reach=1) == f"{deck}_cuda"
+    assert rebin_path(grid3, cuda=True, dtype=F32) == "rebin_cuda"
+    assert rebin_path(grid3, cuda=True, dtype=F64) == "rebin_local"
+    assert rebin_path(grid3, cuda=False, dtype=F32) == "rebin_local"
+    assert rebin_path(geom, cuda=True, dtype=F32) == "rebin_lean"
+    made = _spy_kernel_factories(monkeypatch)
+    st = init_state(*_lattice_arrays(inp), geom, dtype=F32)
+    model = sim.params if lj else sim.tables
+    make = make_lj_force_grid if lj else make_eam_force_grid
+    for g, w in zip(sim._make_force(geom, cuda=True),
+                    make(geom, model, F32, "cpu")):
+        assert all(torch.equal(a, b) for a, b in zip(g(st.x, st.typ),
+                                                     w(st.x, st.typ)))
+    st3 = init_state(*_lattice_arrays(inp), grid3, dtype=F32)
+    xp = st3.x + 0.3
+    got = sim._make_rebin(grid3, cuda=True)(xp, st3.v, st3.typ)
+    want = cells.rebin_local(xp, st3.v, st3.typ, grid3)
+    assert all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+               for a, b in zip(got, want))
+    if lj:
+        _equal_steps(sim, geom, st)
+    assert made == [f"{deck}_force", "rebin"] + (["lj_step"] if lj else [])
+
+
+def test_growth_follows_the_jax_package():
+    """A capacity overflow grows the cells to next_capacity(C) with no
+    clamp, as minimd_tpu/sim.py:724-730 grows them: 10 atoms drifting
+    into a cell that holds C = 480 regrow the layout to next_capacity(480)
+    = 600 (past cells.MAX_CAPACITY), and the run replays with every
+    atom; at C = MAX_CAPACITY the same overflow raises, as the JAX
+    package raises at C >= MAX_CAPACITY."""
+    from minimd_torch import cells
+
+    assert cells.next_capacity(480) == jcells.next_capacity(480) == 600
+    inp = _deck(4)          # a 6.72 sigma box: two cells of reach 1
+    inp.epsilon = 0.0       # no forces: the atoms drift as they are sent
+    inp.neigh_every = inp.thermo_nstat = 2
+    prd, _, _, _, mass = create.setup_system(inp)
+    rng = np.random.default_rng(0)
+    for cap in (480, cells.MAX_CAPACITY):
+        # C atoms at rest in the lower cell along x, 10 more just above
+        # it moving down into it (0.02 sigma a rebin interval)
+        x = rng.uniform(0.02, 0.98, (cap + 10, 3)) * np.asarray(prd)
+        x[:, 0] = x[:, 0] * 0.48
+        x[cap:, 0] = 0.5 * prd[0] + 0.005
+        v = np.zeros_like(x)
+        v[cap:, 0] = -2.0
+        # the cells' faces at x = 0 and prd/2 (no clearance offset)
+        geom = dataclasses.replace(cells.build_geometry(
+            prd, inp.neigh_cut, x, nbins=(2, 1, 1), capacity=cap),
+            offset=(0.0, 0.0, 0.0))
+        st = init_state(x, v, np.zeros(cap + 10, np.int32), geom, F64)
+        sim = Simulation.from_state(inp, geom, st, mass, dtype=F64,
+                                    device="cpu")
+        sim._user_nbins, sim._user_capacity = geom.nb, cap
+        assert sim.geom.capacity == cap and sim.state.overflow == 0
+        if cap >= cells.MAX_CAPACITY:
+            with pytest.raises(RuntimeError, match="capacity overflow"):
+                sim.run(4)
+            continue
+        trace = sim.run(4)
+        assert sim.geom.capacity == 600 and sim.geom.nb == (2, 1, 1)
+        assert sim._regrows == 1 and sim.state.overflow == 0
+        assert int(sim.state.valid.sum()) == cap + 10
+        assert np.isfinite(trace).all()
