@@ -110,7 +110,20 @@ Run from the root of a checkout. Phases, one line each:
    copies go through the routes (the boundary slabs only), rows against
    the one-group card run, with the elements each step ships per group
    beside the whole other group's. [setup] prints the seconds of the main
-   paths' Simulation.from_input calls (131k and 864k, LJ and EAM).
+   paths' Simulation.from_input calls (131k and 864k, LJ and EAM);
+15. the host side: [setup-split] Simulation.from_input at LJ 131k, 864k
+   and 2,048,000 atoms (inputs/in.lj.miniMD.80) and EAM 864k, then its
+   pieces (setup_system on the host runtime and on its numpy bodies in
+   turns, build_geometry, init_state with the upload, from_state with the
+   first force); [sweep-large] minimd_torch.run_tests' card `large` scope
+   (LJ -s 40/2000 and -s 60/1000, EAM -s 20/10000 and -s 40/1000 against
+   tests/golden, PASS or XFAIL with the kernels' launches); [native] the
+   host runtime (csrc/native.cpp) bit for bit its numpy bodies at 864k,
+   host seconds in turns; [data-864k] the LJ deck at -s 60 written with
+   write_lammps_data and read through -f, its rows bit for bit the deck
+   run's; [data-1m] python -m minimd_torch.make_data's 1,048,576 atoms in
+   the box of tests/golden/1049k.lj-data, 100 steps through the CLI's -f,
+   every atom kept, rows equal to Simulation.from_arrays' on its arrays.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (inputs read once, outputs written once) over
@@ -124,7 +137,8 @@ copy_add's is torch.add(x, 1.0, out=y).
 
 Prints a JSON line of the 9 ported kernels and the 4 sharded forms, the
 rates, the probes' pins, the half paths', the decomposed surface's and
-phase 14's numbers and the set-up seconds, the card line, and last
+phase 14's numbers, the set-up seconds and phase 15's (setup_split,
+sweep_large, data), the card line, and last
 {"ok": true,
 "device": {...}}. Any failure raises: the exit code is then not 0 and no
 result line is printed.
@@ -2173,6 +2187,369 @@ def mesh_mixed_phase(card_line, steps=40):
     return {"rows_max_rel": d, "wall_s": wall, "shipped": ship}
 
 
+# ----------------------------------------------------------------------
+# the host runtime, the set-up split, the large sweep, the -f path (15)
+# ----------------------------------------------------------------------
+
+def in_turns(fns):
+    """Each of two calls twice, in turns (a b b a): ({name: [host s, host
+    s]}, {name: its last result})."""
+    names = list(fns)
+    secs, out = {k: [] for k in names}, {}
+    for name in names + names[::-1]:
+        t0 = time.perf_counter()
+        out[name] = fns[name]()
+        secs[name].append(time.perf_counter() - t0)
+    return secs, out
+
+
+def _bits_equal(a, b):
+    """Two tuples of arrays (or numbers) equal bit for bit, dtypes too."""
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.asarray(p).dtype == np.asarray(q).dtype
+        and np.array_equal(np.asarray(p), np.asarray(q)) for p, q in zip(a, b))
+
+
+def _secs(v):
+    return ",".join(f"{t:.4f}" for t in v)
+
+
+def native_phase(card_line, path, s=60):
+    """The host runtime (csrc/native.cpp through minimd_torch.native)
+    against its numpy bodies on the LJ deck at -s s, bit for bit: the type
+    stream, the lattice of the whole box and of one sub-box, and the data
+    file at path; host seconds of each, native and plain in turns."""
+    from minimd_torch import create, lammps_data
+    from minimd_torch.config import builtin_deck
+
+    rho = builtin_deck("lj").rho
+    box = create.create_box(s, s, s, rho)
+    n = 4 * s ** 3
+    sub = (0.25 * box.xprd, 0.75 * box.xprd, 0.0, 0.5 * box.yprd,
+           0.5 * box.zprd, box.zprd)
+
+    def read(fn):
+        b, x, v, mass = fn(path)
+        return b.prd, x, v, mass
+
+    cases = {
+        "rand_types": (lambda: (create.assign_types(n, 4),),
+                       lambda: (create.assign_types_plain(n, 4),)),
+        "create_atoms": (
+            lambda: create.create_atoms(s, s, s, rho, box),
+            lambda: create.create_atoms_plain(s, s, s, rho, box)),
+        "create_atoms_subbox": (
+            lambda: create.create_atoms(s, s, s, rho, box, sub),
+            lambda: create.create_atoms_plain(s, s, s, rho, box, sub)),
+        "read_lammps_data": (
+            lambda: read(lammps_data.read_lammps_data),
+            lambda: read(lammps_data.read_lammps_data_plain)),
+    }
+    out = {}
+    for label, (native, plain) in cases.items():
+        secs, got = in_turns({"native": native, "plain": plain})
+        rows = got["native"][1 if label == "read_lammps_data" else 0]
+        out[label] = {"rows": len(rows),
+                      "bit_identical": _bits_equal(got["native"],
+                                                   got["plain"]),
+                      "native_s": secs["native"], "plain_s": secs["plain"]}
+    ok = (all(v["bit_identical"] for v in out.values())
+          and out["rand_types"]["rows"] == out["create_atoms"]["rows"] == n
+          and out["read_lammps_data"]["rows"] == n
+          and 0 < out["create_atoms_subbox"]["rows"] < n)
+    phase("native", f"-s {s} ({n} atoms), native against plain in turns "
+          "(n p p n), host s: " + "; ".join(
+              f"{k} rows={v['rows']} bit-identical={v['bit_identical']} "
+              f"native={_secs(v['native_s'])} plain={_secs(v['plain_s'])}"
+              for k, v in out.items()) + f" {card_line} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("native: the host runtime differs from the "
+                             "numpy bodies")
+    return out
+
+
+def setup_split_phase(card_line, device="cuda", systems=None):
+    """Simulation.from_input on each system (label: deck, -s or None for
+    the deck's size), then its pieces, each to a card sync: setup_system
+    native and plain in turns (n p p n; the arrays bit-identical),
+    cells.build_geometry (the grid autotune and capacity), init_state with
+    the upload, and Simulation.from_state (force closures, the EAM tables'
+    fit, the first force). Returns {label: seconds}."""
+    import torch
+
+    from minimd_torch import cells, create
+    from minimd_torch.config import FORCE_EAM, parse_deck
+    from minimd_torch.sim import Simulation
+    from minimd_torch.state import init_state
+
+    if systems is None:
+        systems = {"lj_131k": ("in.lj.miniMD", None),
+                   "lj_864k": ("in.lj.miniMD", 60),
+                   "lj_2048k": ("in.lj.miniMD.80", None),
+                   "eam_864k": ("in.eam.miniMD", 60)}
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        return got, time.perf_counter() - t0
+
+    out = {}
+    for label, (deck, s) in systems.items():
+        inp = parse_deck(REPO / "inputs" / deck)
+        if s:
+            inp.nx = inp.ny = inp.nz = s
+        sim, whole = timed(lambda: Simulation.from_input(inp, device=device))
+        natoms = sim.natoms
+        del sim
+        secs, got = in_turns({
+            "native": lambda: create.setup_system(inp),
+            "plain": lambda: create.setup_system(inp, native=False)})
+        prd, x, v, typ, mass = got["native"]
+        same = _bits_equal(got["native"], got["plain"])
+        solid = inp.forcetype == FORCE_EAM and inp.datafile is None
+        geom, t_geom = timed(lambda: cells.build_geometry(
+            prd, inp.neigh_cut, x, solid=solid))
+        state, t_init = timed(lambda: init_state(x, v, typ, geom,
+                                                 device=device))
+        sim, t_force = timed(lambda: Simulation.from_state(
+            inp, geom, state, mass, ntypes=4, device=device))
+        ok = same and sim.natoms == natoms == len(x)
+        out[label] = {"natoms": natoms, "from_input_s": whole,
+                      "setup_system_native_s": secs["native"],
+                      "setup_system_plain_s": secs["plain"],
+                      "bit_identical": same, "build_geometry_s": t_geom,
+                      "init_state_s": t_init, "first_force_s": t_force,
+                      "nb": list(geom.nb), "capacity": geom.capacity}
+        phase("setup-split", f"{label} natoms={natoms} from_input="
+              f"{whole:.3f}s: setup_system native={_secs(secs['native'])}"
+              f" plain={_secs(secs['plain'])} (n p p n, bit-identical="
+              f"{same}), build_geometry={t_geom:.3f}s (nb={geom.nb} "
+              f"C={geom.capacity}), init_state with the upload="
+              f"{t_init:.3f}s, from_state with the first force="
+              f"{t_force:.3f}s {card_line} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"setup-split {label}: the native and plain "
+                                 "set-up differ")
+        del sim, state, got
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sweep_large_phase(card_line, cases=None, device="cuda"):
+    """minimd_torch.run_tests' card `large` scope (f32, precision 4), one
+    device: each case's status (PASS, or XFAIL for a case of
+    run_tests.XFAIL_F32 that fails), T/U/P fractions, the kernels'
+    launches over the case (set-up included) and its seconds. A FAIL fails
+    the phase. Returns {case: numbers}."""
+    import torch
+
+    from minimd_torch import run_tests
+
+    cuda = device != "cpu"
+    if cases is None:
+        cases = run_tests.scope_cases("large", cuda=True)
+    precision = 4 if cuda else 8
+    out, failed = {}, []
+    for name, size, steps in cases:
+        reset_counters()
+        t0 = time.perf_counter()
+        res, rows, skip = run_tests.run_case(name, size, steps, precision,
+                                             device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in counters().items() if n}
+        if skip:
+            failed.append(f"{name} -s {size}: {skip}")
+            continue
+        status = ("PASS" if res.passed else "XFAIL"
+                  if cuda and (name, size) in run_tests.XFAIL_F32 else "FAIL")
+        force = ({"lj_force"} if name.startswith("lj")
+                 else {"eam_rho", "eam_force"})
+        ran = not cuda or all(launches.get(k, 0) > 0
+                              for k in force | {"rebin_pull"})
+        if status == "FAIL" or not ran:
+            failed.append(f"{name} -s {size}")
+        key = f"{name}_{size}_{steps}"
+        out[key] = {"status": status, "frac_t": res.frac_t,
+                    "frac_u": res.frac_e, "frac_p": res.frac_p,
+                    "nsteps": res.nsteps, "launches": launches,
+                    "wall_s": wall, "last_row": rows[-1]}
+        phase("sweep-large", f"{status} {name} -s {size} -n {steps} "
+              f"(precision {precision}): {res} T/U/P {res.frac_t:.3f} / "
+              f"{res.frac_e:.3f} / {res.frac_p:.3f} launches={launches} "
+              f"{wall:.1f}s (set-up included) last={rows[-1]} {card_line}")
+        if cuda:
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"sweep-large: {failed} failed")
+    return out
+
+
+def data_864k_phase(card_line, workdir, s=60, steps=100, device="cuda"):
+    """The LJ deck at -s s written with lammps_data.write_lammps_data (its
+    setup_system arrays: lattice, scaled velocities), [native] on that
+    file, then the file read through Simulation.from_input (the -f path,
+    native reader) and `steps` steps on the card: rows bit for bit the
+    deck run's (.17g round-trips, the types come from the same stream, the
+    box is the same), every atom kept. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from minimd_torch import create, lammps_data
+    from minimd_torch.config import parse_deck
+    from minimd_torch.sim import Simulation
+
+    inp = parse_deck(REPO / "inputs/in.lj.miniMD")
+    inp.nx = inp.ny = inp.nz = s
+    path = pathlib.Path(workdir) / f"lj{s}.data"
+    prd, x, v, _, mass = create.setup_system(inp)
+    box = create.create_box(s, s, s, inp.rho)
+    t0 = time.perf_counter()
+    lammps_data.write_lammps_data(path, box, x, v, mass=mass)
+    t_write = time.perf_counter() - t0
+    native = native_phase(card_line, path, s)
+    runs = {}
+    for label, datafile in (("data", str(path)), ("deck", None)):
+        inp.datafile = datafile
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = Simulation.from_input(inp, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        reset_counters()
+        trace = sim.run(steps)
+        launches = {k: n for k, n in counters().items() if n}
+        runs[label] = {"from_input_s": t_setup, "launches": launches,
+                       "rows": sim.thermo_trace(trace),
+                       "kept": int(sim.state.valid.sum()),
+                       "natoms": sim.natoms, "finite":
+                       bool(np.isfinite(trace).all()),
+                       "clean": sim.state.overflow == 0 and sim._regrows == 0,
+                       "prd": np.asarray(sim.geom.prd)}
+        del sim
+    path.unlink()
+    d, k = runs["data"], runs["deck"]
+    same = d["rows"] == k["rows"]
+    ok = (same and d["kept"] == d["natoms"] == 4 * s ** 3 and d["finite"]
+          and d["clean"] and np.array_equal(d["prd"], k["prd"])
+          and np.array_equal(d["prd"], prd)
+          and (device == "cpu" or (d["launches"].get("lj_force", 0) > 0
+                                   and d["launches"].get("rebin_pull", 0)
+                                   > 0)))
+    rd = native["read_lammps_data"]
+    phase("data-864k", f"-s {s} ({4 * s ** 3} atoms): write "
+          f"{t_write:.3f}s, read native={_secs(rd['native_s'])}s plain="
+          f"{_secs(rd['plain_s'])}s, from_input (-f) "
+          f"{d['from_input_s']:.3f}s (deck {k['from_input_s']:.3f}s); "
+          f"{steps} steps launches={d['launches']} rows={d['rows']} "
+          f"bit-identical to the deck run's={same} atoms={d['kept']} "
+          f"{card_line} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("data-864k: the data-file run differs from "
+                             "the deck run")
+    return {"write_s": t_write, "from_input_s": d["from_input_s"],
+            "deck_from_input_s": k["from_input_s"],
+            "launches": d["launches"], "rows_bit_identical": same,
+            "native": native}
+
+
+def data_1m_phase(card_line, workdir, n=(64, 32, 128), rho=0.058464,
+                  steps=100, device="cuda"):
+    """`python -m minimd_torch.make_data --nx 64 --ny 32 --nz 128 --rho
+    0.058464` (1,048,576 atoms in the 261.76 x 130.88 x 523.52 box of
+    tests/golden/1049k.lj-data), then the CLI's `-i
+    inputs/in.lj-data.miniMD -f <file> -n steps -o 1` (cli.main, in this
+    process): every atom kept, lost_atoms: 0 in its YAML, no regrow, and
+    rows bit for bit those of Simulation.from_arrays on the arrays
+    make_data wrote (make_data.make_system, the same calls). Returns its
+    numbers."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from minimd_torch import cli, create, make_data
+    from minimd_torch.config import parse_deck
+    from minimd_torch.sim import Simulation
+
+    nx, ny, nz = n
+    natoms = 4 * nx * ny * nz
+    path = pathlib.Path(workdir) / "1m.data"
+    t0 = time.perf_counter()
+    made = subprocess.run(
+        [sys.executable, "-m", "minimd_torch.make_data", "--nx", str(nx),
+         "--ny", str(ny), "--nz", str(nz), "--rho", str(rho), "-o",
+         str(path)], cwd=REPO, capture_output=True, text=True, check=True)
+    t_make = time.perf_counter() - t0
+    deck = REPO / "inputs/in.lj-data.miniMD"
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            sim, rows = cli.main(["-i", str(deck), "-f", str(path), "-n",
+                                  str(steps), "-o", "1", "--device", device])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        launches = {k: c for k, c in counters().items() if c}
+    finally:
+        os.chdir(cwd)
+    out = buf.getvalue().splitlines()
+    yaml = next(ln for ln in out if ln.startswith("# YAML report: "))
+    yaml_path = pathlib.Path(workdir) / yaml.split(": ", 1)[1]
+    lost0 = "lost_atoms: 0" in yaml_path.read_text().splitlines()
+    yaml_path.unlink()
+    path.unlink()
+    kept = int(sim.state.valid.sum())
+    clean = sim.state.overflow == 0 and sim._regrows == 0
+    geom = (sim.geom.nb, sim.geom.capacity)
+    prd_run = np.asarray(sim.geom.prd)
+    del sim
+    box, x, v = make_data.make_system(nx, ny, nz, rho, 1.44, 1.0)
+    inp = parse_deck(deck)
+    inp.datafile, inp.ntimes = str(path), steps
+    ref = Simulation.from_arrays(inp, box.prd, x, v,
+                                 create.assign_types(len(x), 4), 1.0,
+                                 device=device)
+    ref_rows = ref.thermo_trace(ref.run(steps))
+    same = rows == ref_rows
+    ok = (same and kept == natoms == len(x) and lost0 and clean
+          and np.array_equal(prd_run, box.prd)
+          and "# WARNING" not in buf.getvalue()
+          and f"{natoms} atoms" in made.stdout
+          and (device == "cpu" or (launches.get("lj_force", 0) > 0
+                                   and launches.get("rebin_pull", 0) > 0)))
+    phase("data-1m", f"make_data {made.stdout.strip()} in {t_make:.1f}s; "
+          f"-f {steps} steps through cli.main in {t_cli:.1f}s (set-up "
+          f"included): nb={geom[0]} C={geom[1]} atoms={kept} lost_atoms 0="
+          f"{lost0} no regrow={clean} launches={launches} rows={rows} equal "
+          f"to from_arrays'={same} {card_line} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("data-1m: the 1M-atom data-file run failed its "
+                             "checks")
+    return {"natoms": natoms, "make_data_s": t_make, "cli_s": t_cli,
+            "nb": list(geom[0]), "capacity": geom[1], "launches": launches,
+            "rows": rows, "rows_equal_from_arrays": same}
+
+
 def main():
     import numpy as np
     import torch
@@ -2509,6 +2886,18 @@ def main():
     capacity = capacity_phases(card_line)
     mixed = mesh_mixed_phase(card_line)
 
+    # 15. the host runtime against its numpy bodies, the set-up split, the
+    # run_tests large scope, and the -f path at 864k and 1,048,576 atoms
+    t15 = time.time()
+    setup_split = setup_split_phase(card_line)
+    sweep_large = sweep_large_phase(card_line)
+    with tempfile.TemporaryDirectory() as workdir:
+        data = {"864k": data_864k_phase(card_line, workdir),
+                "1m": data_1m_phase(card_line, workdir)}
+    data["native"] = data["864k"].pop("native")
+    torch.cuda.empty_cache()
+    phase("host-wall", f"phase 15 took {time.time() - t15:.1f}s")
+
     def entry(name, source, replaces, t, key, **extra):
         k131, k864 = t["131k"], t["864k"]
         b131, b864 = k131[f"{key}_bound"], k864[f"{key}_bound"]
@@ -2563,7 +2952,8 @@ def main():
                       "sharded_host_us_per_step": sharded_host,
                       "sharded_surface": surface,
                       "setup_s": setup_s, "capacity_520": capacity,
-                      "mesh_mixed": mixed}))
+                      "mesh_mixed": mixed, "setup_split": setup_split,
+                      "sweep_large": sweep_large, "data": data}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@ Public API:
 
 The package imports neither jax nor the JAX package minimd_tpu: it keeps
 its own copies of the host modules it needs (config, units, create, rng,
-lammps_data, eam_file, validate, timer).
+lammps_data, eam_file, validate, timer, the native host runtime, the
+make_data and run_tests scripts).
 """
 
 from .config import In, builtin_deck, parse_deck  # noqa: F401

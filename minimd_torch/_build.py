@@ -7,6 +7,10 @@ includes PyTorch's headers takes minutes). The library goes into
 `minimd_torch/_build/`, named by a hash of the sources, headers and flags,
 so an edited source rebuilds and an unchanged one loads at once. A failed
 compile or load raises; nothing falls back.
+
+`build_host()` / `host_lib()` do the same for the host runtime,
+`csrc/native.cpp` (the set-up and data-file hot paths), with the host C++
+compiler (`CXX`, else `g++`): it needs no nvcc, so the CPU runs it too.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import shlex
 import shutil
 import subprocess
 
@@ -22,6 +27,10 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+HOST_SRC = CSRC / "native.cpp"
+# no -ffast-math and no FMA contraction: the host runtime's arrays are
+# the numpy bodies' bit for bit
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,7 +69,20 @@ _SIGNATURES = {
     "copy_add_launch": [_P, _P, ctypes.c_longlong, _I, _P],
 }
 
+_HOST_SIGNATURES = {
+    # seed, n, ntypes, out (int32)
+    "mmd_rand_types": (None, [ctypes.c_uint, ctypes.c_int64, _I, _P]),
+    # nx, ny, nz, rho, bounds (6 f64), capacity, x, v (f64, capacity x 3)
+    "mmd_create_atoms": (ctypes.c_int64, [_I, _I, _I, ctypes.c_double, _P,
+                                          ctypes.c_int64, _P, _P]),
+    # path, natoms, box (3 f64), mass (f64), x, v (f64, natoms x 3), line
+    "mmd_read_lammps_data": (ctypes.c_int64, [ctypes.c_char_p,
+                                              ctypes.c_int64, _P, _P, _P,
+                                              _P, _P]),
+}
+
 _lib = None
+_host_lib = None
 
 
 def _nvcc() -> str:
@@ -90,13 +112,19 @@ def _run_all(cmds) -> list[str]:
     return outs
 
 
+def kernel_sources() -> list[pathlib.Path]:
+    """The files the kernel library is built from and named by: the CUDA
+    sources and headers (not the host runtime's native.cpp)."""
+    return sorted(CSRC.glob("*.cu*"))
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu (if not yet built for these sources) and return
     the library path. The ptxas report (registers, spills) is kept beside
     it as ptxas.log."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sorted(CSRC.glob("*.cu*")):
+    for s in kernel_sources():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib = BUILD_DIR / f"libminimd_kernels_{h.hexdigest()[:16]}.so"
@@ -129,6 +157,47 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def build_host() -> pathlib.Path:
+    """Compile csrc/native.cpp with the host C++ compiler (`CXX`, else
+    g++) if not yet built for this source, compiler and these flags, and
+    return the library path. Several processes may build at once: each
+    writes its own temporary file and moves it into place."""
+    cxx = shlex.split(os.environ.get("CXX") or "g++")
+    h = hashlib.sha256(" ".join(cxx + HOST_FLAGS).encode())
+    h.update(HOST_SRC.read_bytes())
+    lib = BUILD_DIR / f"libminimd_native_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [*cxx, *HOST_FLAGS, "-o", str(tmp), str(HOST_SRC)]
+    try:
+        p = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"host compiler failed: {' '.join(cmd)}: {e}") \
+            from e
+    if p.returncode != 0 or not tmp.exists():
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host compiler failed ({p.returncode}):\n"
+                           f"{' '.join(cmd)}\n{p.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def host_lib() -> ctypes.CDLL:
+    """The loaded host runtime, built on first use."""
+    global _host_lib
+    if _host_lib is None:
+        handle = ctypes.CDLL(str(build_host()))
+        for name, (restype, argtypes) in _HOST_SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _host_lib = handle
+    return _host_lib
 
 
 def on_device(device, switch: bool):

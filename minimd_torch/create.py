@@ -11,10 +11,13 @@ golden-trace parity (ref/setup.cpp:305-517):
 - type[i] = glibc rand()%ntypes with srand(5413)    (atom.cpp:97, ljs.cpp:110)
 - COM-zeroed, temperature-rescaled velocities       (setup.cpp:454-494)
 
-Everything here is host-side NumPy (float64): setup runs once; the device
-only ever sees the finished arrays. A copy of minimd_tpu.create without
-its native (C++ host runtime) fast path, whose numpy path gives the same
-arrays; the EAM mass comes from the port's own eam_file.
+Everything here is host-side (float64): setup runs once; the device only
+ever sees the finished arrays. A copy of minimd_tpu.create. `create_atoms`
+and `assign_types` run the host runtime (csrc/native.cpp, through
+`native`) on every call; the numpy bodies stay beside them as their plain
+versions (`create_atoms_plain`, `assign_types_plain`, `setup_system(...,
+native=False)`), which give the same arrays bit for bit. The EAM mass
+comes from the port's own eam_file.
 """
 
 from __future__ import annotations
@@ -93,7 +96,24 @@ def create_atoms(
     `bounds` defaults to the whole box (single-device). With a subdomain
     it generates only that slab's atoms, in the same per-rank order the
     reference uses — so a sharded setup is bit-identical to the MPI one.
+    Runs the host runtime; `create_atoms_plain` is its numpy version.
     """
+    from . import native
+
+    if bounds is None:
+        bounds = (0.0, box.xprd, 0.0, box.yprd, 0.0, box.zprd)
+    return native.create_atoms(nx, ny, nz, rho, bounds)
+
+
+def create_atoms_plain(
+    nx: int,
+    ny: int,
+    nz: int,
+    rho: float,
+    box: Box,
+    bounds: tuple[float, float, float, float, float, float] | None = None,
+):
+    """`create_atoms` in numpy, the same arrays bit for bit."""
     if bounds is None:
         bounds = (0.0, box.xprd, 0.0, box.yprd, 0.0, box.zprd)
     xlo, xhi, ylo, yhi, zlo, zhi = bounds
@@ -137,7 +157,16 @@ def create_atoms(
 
 
 def assign_types(nlocal: int, ntypes: int, seed: int = 5413) -> np.ndarray:
-    """glibc rand()%ntypes per atom, in insertion order (atom.cpp:97)."""
+    """glibc rand()%ntypes per atom, in insertion order (atom.cpp:97), from
+    the host runtime; `assign_types_plain` is its numpy version."""
+    from . import native
+
+    return native.rand_types(seed, nlocal, ntypes)
+
+
+def assign_types_plain(nlocal: int, ntypes: int,
+                       seed: int = 5413) -> np.ndarray:
+    """`assign_types` in numpy, the same types bit for bit."""
     return GlibcRand(seed).rand_array(nlocal, ntypes)
 
 
@@ -165,22 +194,28 @@ def create_velocity(
     return v * factor
 
 
-def setup_system(inp, ntypes: int = 4, potential_path: str | None = None):
+def setup_system(inp, ntypes: int = 4, potential_path: str | None = None,
+                 *, native: bool = True):
     """Deck -> (prd, x, v, typ, mass): the reference's deterministic setup
     sequence (ljs.cpp:385-468) — box + FCC lattice (or LAMMPS data file),
     seeded type assignment, EAM mass from the potential file, COM-zero +
-    rescale velocities for generated systems (setup.cpp:454-494)."""
+    rescale velocities for generated systems (setup.cpp:454-494).
+    native=False runs the numpy bodies (the plain versions), which give
+    the same arrays."""
+    from . import lammps_data
     from .config import FORCE_EAM
 
     if inp.datafile is not None:
-        from .lammps_data import read_lammps_data
-        box, x, v, mass = read_lammps_data(inp.datafile)
+        read = (lammps_data.read_lammps_data if native
+                else lammps_data.read_lammps_data_plain)
+        box, x, v, mass = read(inp.datafile)
     else:
         box = create_box(inp.nx, inp.ny, inp.nz, inp.rho)
-        x, v = create_atoms(inp.nx, inp.ny, inp.nz, inp.rho, box)
+        x, v = (create_atoms if native else create_atoms_plain)(
+            inp.nx, inp.ny, inp.nz, inp.rho, box)
         mass = 1.0
     natoms = len(x)
-    typ = assign_types(natoms, ntypes)
+    typ = (assign_types if native else assign_types_plain)(natoms, ntypes)
 
     if inp.forcetype == FORCE_EAM:
         from .eam_file import default_potential_path, read_funcfl

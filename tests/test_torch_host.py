@@ -20,21 +20,24 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 @pytest.mark.parametrize("deck", ["lj", "eam"])
 @pytest.mark.parametrize("s", [6, 10])
 def test_setup_system_matches_jax(deck, s):
-    """prd, x, v, typ and mass of the port's numpy setup equal the JAX
+    """prd, x, v, typ and mass of the port's setup, on its host runtime
+    (the default) and on its numpy bodies (native=False), equal the JAX
     package's (which may take its native C++ path) exactly."""
     inp, jinp = builtin_deck(deck), jax_builtin_deck(deck)
     inp.nx = inp.ny = inp.nz = jinp.nx = jinp.ny = jinp.nz = s
-    got = create.setup_system(inp)
     want = jcreate.setup_system(jinp)
-    assert len(got) == len(want) == 5
-    for name, a, b in zip(("prd", "x", "v", "typ", "mass"), got, want):
-        assert np.array_equal(a, b), name
-    assert len(got[1]) == 4 * s ** 3
+    for native in (True, False):
+        got = create.setup_system(inp, native=native)
+        assert len(got) == len(want) == 5
+        for name, a, b in zip(("prd", "x", "v", "typ", "mass"), got, want):
+            assert np.array_equal(a, b), (name, native)
+            assert np.asarray(a).dtype == np.asarray(b).dtype, name
+        assert len(got[1]) == 4 * s ** 3
 
 
 def test_lammps_data_reader_matches_jax(tmp_path):
     """A data file written by the JAX package's writer reads back the same
-    through both packages' readers (the port's has no native path)."""
+    through both packages' readers (the port's on its host runtime)."""
     from minimd_tpu.lammps_data import read_lammps_data as jax_read
     from minimd_tpu.lammps_data import write_lammps_data
     from minimd_torch.lammps_data import read_lammps_data
