@@ -123,7 +123,15 @@ Run from the root of a checkout. Phases, one line each:
    write_lammps_data and read through -f, its rows bit for bit the deck
    run's; [data-1m] python -m minimd_torch.make_data's 1,048,576 atoms in
    the box of tests/golden/1049k.lj-data, 100 steps through the CLI's -f,
-   every atom kept, rows equal to Simulation.from_arrays' on its arrays.
+   every atom kept, rows equal to Simulation.from_arrays' on its arrays;
+16. the port's bench: python -m minimd_torch.bench (bench.py's cells,
+   run lengths and best-of-3 slopes: LJ and EAM at 131k and 864k, the
+   1-domain ShardedSimulation), python -m minimd_torch.bench --devices 8
+   and python -m minimd_torch.perf --style eam --n 32, each in its own
+   process: exit 0, every slope line printed, the last line bench.py's
+   JSON keys with every rate finite and above 0 and the card named,
+   perf's two lines with overflow=0; the bench's lj_131k beside the rates
+   timed_run read at 131k in this call (phase 5), as a ratio.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (inputs read once, outputs written once) over
@@ -138,7 +146,7 @@ copy_add's is torch.add(x, 1.0, out=y).
 Prints a JSON line of the 9 ported kernels and the 4 sharded forms, the
 rates, the probes' pins, the half paths', the decomposed surface's and
 phase 14's numbers, the set-up seconds and phase 15's (setup_split,
-sweep_large, data), the card line, and last
+sweep_large, data) and phase 16's (bench), the card line, and last
 {"ok": true,
 "device": {...}}. Any failure raises: the exit code is then not 0 and no
 result line is printed.
@@ -146,6 +154,7 @@ result line is printed.
 
 import functools
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -2550,6 +2559,80 @@ def data_1m_phase(card_line, workdir, n=(64, 32, 128), rho=0.058464,
             "rows": rows, "rows_equal_from_arrays": same}
 
 
+# python -m minimd_torch.bench's last line: bench.py's keys, and the rates
+# among them (bench.py:122-137)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "companions"}
+BENCH_RATES = ("lj_864k", "eam_131k", "eam_864k", "lj_131k_sharded_1chip")
+
+
+def bench_line(label, lines, card, metric, rates):
+    """The JSON object of a bench run's last line, after its checks: the
+    keys of bench.py's line, the metric, every rate finite and above 0,
+    the card's name and power limit under companions.device."""
+    got = json.loads(lines[-1])
+    comp = got["companions"]
+    values = [got["value"], *(comp[k] for k in rates)]
+    ok = (set(got) == BENCH_KEYS and got["metric"] == metric
+          and got["unit"] == "Matom_steps_per_sec"
+          and all(isinstance(v, (int, float)) and math.isfinite(v)
+                  and v > 0 for v in values) and comp["device"] == card)
+    if not ok:
+        raise AssertionError(f"{label}: last line {lines[-1]!r} fails its "
+                             "checks")
+    return got
+
+
+def bench_phase(card, timed_131k):
+    """[bench]: python -m minimd_torch.bench, its --devices 8 line and
+    python -m minimd_torch.perf --style eam --n 32, each in a subprocess
+    that must exit 0; every line they print, the checks of bench_line and
+    of perf's two lines; the bench's lj_131k beside the rates that
+    timed_run read at 131k in this call (the slope cancels each run()'s
+    start and end, which timed_run counts)."""
+    runs = {}
+    for label, argv in (
+            ("bench", ["minimd_torch.bench"]),
+            ("bench-devices-8", ["minimd_torch.bench", "--devices", "8"]),
+            ("perf-eam-32", ["minimd_torch.perf", "--style", "eam", "--n",
+                             "32"])):
+        t0 = time.time()
+        out = subprocess.run([sys.executable, "-m", *argv], cwd=REPO,
+                             capture_output=True, text=True, timeout=600)
+        lines = out.stdout.strip().splitlines()
+        for line in lines:
+            phase(label, line)
+        if out.returncode != 0 or not lines:
+            print(out.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"{label}: exit {out.returncode}")
+        runs[label] = (lines, time.time() - t0)
+    lines, _ = runs["bench"]
+    head = bench_line("bench", lines, card, "lj_131k_throughput",
+                      BENCH_RATES)
+    slopes = [ln for ln in lines if ln.startswith("[slope] ")]
+    lines, _ = runs["bench-devices-8"]
+    dev8 = bench_line("bench --devices 8", lines, card,
+                      "lj_131k_sharded_throughput", ())
+    first, second = runs["perf-eam-32"][0][-2:]
+    m = re.fullmatch(r"per_step=([0-9.]+) ms  throughput=([0-9.]+) "
+                     r"Matom_steps/s  overflow=0", second)
+    if not (len(slopes) == 15 and dev8["companions"]["devices"] == 8
+            and first.startswith("natoms=131072 grid=(")
+            and " C=" in first and first.endswith(f"device={card}")
+            and m and float(m.group(2)) > 0):
+        raise AssertionError("bench: slopes, --devices 8 or perf's lines "
+                             "fail their checks")
+    ratios = [head["value"] / r for r in timed_131k]
+    phase("bench", f"lj_131k {head['value']} (best slope) against "
+          f"timed_run's {' '.join(f'{r:.3f}' for r in timed_131k)} at 131k "
+          f"in this call: ratio {' '.join(f'{q:.3f}' for q in ratios)}; "
+          "seconds " + " ".join(f"{k}={t:.1f}" for k, (_, t) in
+                                runs.items()) + f" [{card}]")
+    return {"bench": head, "bench_devices_8": dev8, "slopes": slopes,
+            "perf_eam_32": [first, second],
+            "lj_131k_over_timed_run": ratios,
+            "seconds": {k: t for k, (_, t) in runs.items()}}
+
+
 def main():
     import numpy as np
     import torch
@@ -2898,6 +2981,12 @@ def main():
     torch.cuda.empty_cache()
     phase("host-wall", f"phase 15 took {time.time() - t15:.1f}s")
 
+    # 16. the port's bench (python -m minimd_torch.bench, --devices 8) and
+    # python -m minimd_torch.perf, each in a process of its own
+    t16 = time.time()
+    bench = bench_phase(card, rates["lj_131k"])
+    phase("bench-wall", f"phase 16 took {time.time() - t16:.1f}s")
+
     def entry(name, source, replaces, t, key, **extra):
         k131, k864 = t["131k"], t["864k"]
         b131, b864 = k131[f"{key}_bound"], k864[f"{key}_bound"]
@@ -2953,7 +3042,8 @@ def main():
                       "sharded_surface": surface,
                       "setup_s": setup_s, "capacity_520": capacity,
                       "mesh_mixed": mixed, "setup_split": setup_split,
-                      "sweep_large": sweep_large, "data": data}))
+                      "sweep_large": sweep_large, "data": data,
+                      "bench": bench}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

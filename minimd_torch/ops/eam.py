@@ -24,6 +24,7 @@ from ..cells import CellGeometry, is_valid
 from ..eam_file import (PairPolys, PairRows, array2spline, build_pair_polys,
                         build_pair_rows, default_potential_path, file2array,
                         read_funcfl)
+from ..thermo import ordered_sum
 from .pairgrid import halo_extent, pad_grid_int, stencil_slice, to_padded_soa
 
 
@@ -126,7 +127,8 @@ def make_eam_force(geom: CellGeometry, tables: EAMTables,
         m = p.to(torch.int64).clamp_(1, nrho - 1)
         p = torch.clamp(p - m.to(dtype), max=1.0)
         fp = eval_deriv(frho, m, p)
-        embed = torch.where(is_valid(x), eval_value(frho, m, p), 0.0).sum()
+        embed = ordered_sum(torch.where(is_valid(x), eval_value(frho, m, p),
+                                        0.0))
 
         fp_pad = pad_grid_int(fp, geom, h)
         fp_i = stencil_slice(fp_pad, (0, 0, 0), h, nb)[..., :, None]
@@ -147,8 +149,8 @@ def make_eam_force(geom: CellGeometry, tables: EAMTables,
             fpair = torch.where(mask, -psip * recip, 0.0)
             for k in range(3):
                 f[k] += (fpair * d[k]).sum(dim=-1)
-            vir = vir + 0.5 * torch.sum(rsq * fpair)
-            eng = eng + 0.5 * torch.sum(torch.where(mask, phi, 0.0))
+            vir = vir + 0.5 * ordered_sum(rsq * fpair)
+            eng = eng + 0.5 * ordered_sum(torch.where(mask, phi, 0.0))
 
         fout = torch.stack([fd.reshape(M) for fd in f], dim=0)
         return fout, 2.0 * (embed + eng), vir    # force_eam.cpp:446

@@ -25,6 +25,7 @@ import torch
 
 from ..cells import CellGeometry, is_valid
 from ..eam_file import PairPolys
+from ..thermo import ordered_sum
 from .eam import EAMTables, eval_deriv, eval_value, spline_columns
 from .pairgrid import halo_extent, pad_grid_int, stencil_slice, to_padded_soa
 
@@ -79,7 +80,7 @@ def embedding(rho, frho, rdrho: float, valid=None):
     fp = eval_deriv(frho, m, p)
     if valid is None:
         return fp, None
-    return fp, torch.where(valid, eval_value(frho, m, p), 0.0).sum()
+    return fp, ordered_sum(torch.where(valid, eval_value(frho, m, p), 0.0))
 
 
 def _pair_r(Xi, Xp, off, h, nb, cutsq, diag):
@@ -176,8 +177,8 @@ def make_eam_pair_grid(geom: CellGeometry, tables: EAMTables,
             for k in range(3):
                 f[k] = f[k] + (fpair * d[k]).sum(dim=-1)
             if evflag:
-                eng = eng + torch.where(mask, g["P"], 0.0).sum()
-                vir = vir + 0.5 * torch.sum(rsq * fpair)
+                eng = eng + ordered_sum(torch.where(mask, g["P"], 0.0))
+                vir = vir + 0.5 * ordered_sum(rsq * fpair)
         fout = torch.stack([fd.reshape(M) for fd in f], dim=0)
         return fout, eng, vir
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..cells import CellGeometry
+from ..thermo import ordered_sum
 from .lj import LJParams
 from .pairgrid import halo_extent, pad_grid_int, stencil_slice, to_padded_soa
 
@@ -82,8 +83,8 @@ def lj_pair_loop(Xp, Tp, geom: CellGeometry, params: LJParams, dtype,
         for k in range(3):
             f[k] += (fc * d[k]).sum(dim=-1)
         if evflag:
-            eng = eng + torch.sum(sr6 * (sr6 - 1.0) * eps)
-            vir = vir + torch.sum(rsq * fc)
+            eng = eng + ordered_sum(sr6 * (sr6 - 1.0) * eps)
+            vir = vir + ordered_sum(rsq * fc)
 
     return f, eng * 4.0, vir * 0.5
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..cells import CellGeometry
+from ..thermo import ordered_sum
 from .lj import LJParams
 from .pairgrid import halo_extent, pad_grid_int, to_padded_soa
 
@@ -155,8 +156,9 @@ def j_slices(off, h: int, nb):
 
 
 def per_domain_sum(t: torch.Tensor) -> torch.Tensor:
-    """(B,) the sum over every axis but the leading one."""
-    return t.reshape(t.shape[0], -1).sum(dim=1)
+    """(B,) the sum over every axis but the leading one, in an order that
+    no CPU thread count changes."""
+    return ordered_sum(t, lead=1)
 
 
 def padded_grids(X: torch.Tensor, shape) -> list[torch.Tensor]:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..cells import CellGeometry
+from ..thermo import ordered_sum
 from .lj import LJParams
 from .lj_grid import make_lj_force_grid
 
@@ -53,7 +54,8 @@ def make_lj_step_plain(geom: CellGeometry, params: LJParams, dt: float,
         v = w + dtforce * f
         w_next = v + dtforce * f
         x_next = torch.add(x, dt * w_next, out=out)
-        vsq = torch.sum(v * v, dtype=torch.float64) if evflag else vsq0
+        vsq = (ordered_sum(v * v, dtype=torch.float64) if evflag
+               else vsq0)
         return x_next, w_next, eng, vir, vsq
 
     def seed(x, v, f):

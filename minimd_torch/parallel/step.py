@@ -31,6 +31,7 @@ import torch
 
 from ..cells import CellGeometry
 from ..ops.pairgrid import _pad_halo
+from ..thermo import ordered_sum
 from ..timer import TIME_COMM, TIME_FORCE, TIME_NEIGH
 from .mesh import AXES, Mesh, Router
 
@@ -593,8 +594,8 @@ def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
             for g in range(G):
                 v[g].add_(f[g], alpha=dtforce)
             if ev:
-                vsq = router.domain_sum([torch.sum(
-                    vg * vg, dim=(1, 2), dtype=torch.float64) for vg in v])
+                vsq = router.domain_sum([ordered_sum(
+                    vg * vg, lead=1, dtype=torch.float64) for vg in v])
                 t = vsq * tsc
                 e = router.domain_sum(eng)
                 w = router.domain_sum(vir)

@@ -83,6 +83,7 @@ def test_port_imports_nothing_of_jax_package():
     files = sorted((REPO / "minimd_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"bench.py", "perf.py"} <= {f.name for f in files}
     bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
            for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)

@@ -25,11 +25,11 @@ def test_lj_4k_passes_golden():
 @pytest.fixture
 def one_thread():
     """One intra-op thread for the bit-for-bit comparisons below. With 8,
-    the first EAM Simulation built after the LJ tests of this file took
-    initial forces ~3 ulp off in about half of the runs (an order of the
-    CPU sums that is not fixed; a second force call on the same state
-    gave the usual bits), which would fail a bit-for-bit test that the
-    data path does not break."""
+    the first EAM Simulation built after the LJ tests of this file once
+    took a step-0 energy ~3 ulp off in about half of the runs: the plain
+    paths' scalar sums then split among the threads that joined them.
+    thermo.ordered_sum now fixes their order (tests/test_torch_threads.py);
+    the fixture stays as a second guard."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
