@@ -83,6 +83,9 @@ _HOST_SIGNATURES = {
 
 _lib = None
 _host_lib = None
+# True once this process has compiled the kernel library (set-up's record
+# says whether its kernels' part ran nvcc)
+built = False
 
 
 def _nvcc() -> str:
@@ -122,6 +125,7 @@ def build() -> pathlib.Path:
     """Compile csrc/*.cu (if not yet built for these sources) and return
     the library path. The ptxas report (registers, spills) is kept beside
     it as ptxas.log."""
+    global built
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in kernel_sources():
@@ -143,6 +147,7 @@ def build() -> pathlib.Path:
         o.unlink()
     (BUILD_DIR / "ptxas.log").write_text("".join(logs))
     os.replace(tmp, lib)
+    built = True
     return lib
 
 

@@ -197,7 +197,8 @@ def _notes(args, inp):
 
 def _profiler(args, cuda: bool):
     """A torch.profiler context for --profile DIR (CUDA activity when the
-    run uses a card), else a null context."""
+    run uses a card), else a null context. It covers set-up and the run,
+    so the trace holds the program's minimd.setup.* spans too."""
     if not args.profile:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
@@ -206,6 +207,13 @@ def _profiler(args, cuda: bool):
     if cuda:
         acts.append(ProfilerActivity.CUDA)
     return profile(activities=acts)
+
+
+def _setup_line(record: dict) -> str:
+    """Set-up's parts (the simulation's setup_record) as one # line."""
+    return "# Set-up: " + ", ".join(
+        f"{k} {v}" if isinstance(v, bool) else f"{k} {v:.3f} s"
+        for k, v in record.items())
 
 
 def _save_profile(args, prof):
@@ -237,27 +245,28 @@ def main(argv=None):
         return main_sharded(args, inp, dtype)
     nbins = (args.neigh_bins,) * 3 if args.neigh_bins > 0 else None
     print("# Create System:")
-    sim = Simulation.from_input(inp, ntypes=args.ntypes, dtype=dtype,
-                                device=args.device, nbins=nbins,
-                                capacity=args.capacity,
-                                half_neigh=args.half_neigh == 1,
-                                ghost_newton=args.ghost_newton != 0)
-    print("# Done .... ")
-    banner(inp, sim, args)
-
-    print("# Starting dynamics ...")
-    print("# Timestep T U P Time")
-    r0 = sim._row0
-    print(f"{r0[0]} {r0[1]:e} {r0[2]:e} {r0[3]:e}  0.000")
-    prof = _profiler(args, sim.device.type == "cuda")
-    timer = Timer()
-    timer.barrier_start(TIME_TOTAL)
+    prof = _profiler(args, args.device == "cuda")
     with prof:
+        sim = Simulation.from_input(inp, ntypes=args.ntypes, dtype=dtype,
+                                    device=args.device, nbins=nbins,
+                                    capacity=args.capacity,
+                                    half_neigh=args.half_neigh == 1,
+                                    ghost_newton=args.ghost_newton != 0)
+        print("# Done .... ")
+        print(_setup_line(sim.setup_record))
+        banner(inp, sim, args)
+
+        print("# Starting dynamics ...")
+        print("# Timestep T U P Time")
+        r0 = sim._row0
+        print(f"{r0[0]} {r0[1]:e} {r0[2]:e} {r0[3]:e}  0.000")
+        timer = Timer()
+        timer.barrier_start(TIME_TOTAL)
         if args.timed or args.check_exchange:
             trace = sim.run_timed(timer, check_exchange=args.check_exchange)
         else:
             trace = sim.run()    # ends in a host sync: the time is complete
-    timer.barrier_stop(TIME_TOTAL)
+        timer.barrier_stop(TIME_TOTAL)
     _save_profile(args, prof)
 
     t = timer.array
@@ -301,32 +310,33 @@ def main_sharded(args, inp, dtype):
         sys.exit(f"ERROR: --device {args.device}: {e}")
     print("# Create System (decomposed):")
     nbins = (args.neigh_bins,) * 3 if args.neigh_bins > 0 else None
-    ssim = ShardedSimulation.from_input(
-        inp, devices=devices, dtype=dtype, nbins=nbins, ntypes=args.ntypes,
-        safe_exchange=args.safe_exchange, capacity=args.capacity,
-        half_neigh=args.half_neigh == 1,
-        ghost_newton=args.ghost_newton != 0)
-    print("# Done .... ")
-    groups = ", ".join(f"{dev} x{len(ks)}" for dev, ks in ssim.router.groups)
-    banner(inp, ssim, args, device=f"{args.devices} domains ({groups})")
-    print(f"# Mesh: {dict(ssim.mesh.shape)}")
-    print(f"# Domains' devices: {ssim.devices}")
-
-    print("# Starting dynamics ...")
-    print("# Timestep T U P Time")
-    r0 = ssim.row0
-    print(f"{r0[0]} {r0[1]:e} {r0[2]:e} {r0[3]:e}  0.000")
-    prof = _profiler(args, any(dev.type == "cuda"
-                               for dev, _ in ssim.router.groups))
-    timer = Timer()
-    timer.barrier_start(TIME_TOTAL)
+    prof = _profiler(args, args.device == "cuda")
     with prof:
+        ssim = ShardedSimulation.from_input(
+            inp, devices=devices, dtype=dtype, nbins=nbins,
+            ntypes=args.ntypes, safe_exchange=args.safe_exchange,
+            capacity=args.capacity, half_neigh=args.half_neigh == 1,
+            ghost_newton=args.ghost_newton != 0)
+        print("# Done .... ")
+        print(_setup_line(ssim.setup_record))
+        groups = ", ".join(f"{dev} x{len(ks)}"
+                           for dev, ks in ssim.router.groups)
+        banner(inp, ssim, args, device=f"{args.devices} domains ({groups})")
+        print(f"# Mesh: {dict(ssim.mesh.shape)}")
+        print(f"# Domains' devices: {ssim.devices}")
+
+        print("# Starting dynamics ...")
+        print("# Timestep T U P Time")
+        r0 = ssim.row0
+        print(f"{r0[0]} {r0[1]:e} {r0[2]:e} {r0[3]:e}  0.000")
+        timer = Timer()
+        timer.barrier_start(TIME_TOTAL)
         if args.timed or args.check_exchange:
             trace = ssim.run_timed(timer, inp.ntimes,
                                    check_exchange=args.check_exchange)
         else:
             trace = ssim.run(inp.ntimes)   # ends in a host sync
-    timer.barrier_stop(TIME_TOTAL)
+        timer.barrier_stop(TIME_TOTAL)
     _save_profile(args, prof)
 
     t = timer.array

@@ -64,6 +64,9 @@ class ShardedSimulation:
     # run_timed(check_exchange=True): the positions after the last
     # migration, per group
     _xold: object = None
+    # set-up's parts: host-clock seconds by name, and `built`
+    # (Simulation.setup_record's names)
+    setup_record: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def from_input(inp, devices=None, *, dtype=torch.float32, nbins=None,
@@ -106,12 +109,13 @@ class ShardedSimulation:
             raise ValueError(
                 "cell_chunk applies to the single-device exact-spline EAM "
                 "force only; the decomposed forces have no chunk dimension")
-        from .. import cells, thermo
+        from .. import _build, cells, thermo
         from ..config import FORCE_EAM, FORCE_LJ, UNITS_METAL
         from ..ops.eam import EAMTables
         from ..ops.lj import LJParams
         from ..ops.pairgrid import halo_extent
         from ..state import init_state, sharded_from_grid
+        from ..timer import SetupClock, keep_setup
         from ..units import thermo_scales
         from .comm import make_exchange_rebin
         from .step import (local_grid_shape, make_domain_force,
@@ -124,34 +128,39 @@ class ShardedSimulation:
                                    "the CPU")
             devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
         devices = list(devices)
+        clock = SetupClock()
         natoms = len(x_np)
         ntypes = int(np.max(typ_np)) + 1 if natoms else 1
         prd = tuple(float(p) for p in prd)
-        if inp.forcetype == FORCE_EAM:
-            model = EAMTables.from_funcfl(potential_path)
-            mass = model.mass
-        elif inp.forcetype == FORCE_LJ:
-            model = LJParams.from_deck(ntypes, inp.epsilon, inp.sigma,
-                                       inp.force_cut)
-        else:
-            raise ValueError(f"unknown forcetype {inp.forcetype}")
+        with clock.part("tables"):
+            if inp.forcetype == FORCE_EAM:
+                model = EAMTables.from_funcfl(potential_path)
+                mass = model.mass
+                model.polys   # the fit every decomposed EAM force0 reads
+            elif inp.forcetype == FORCE_LJ:
+                model = LJParams.from_deck(ntypes, inp.epsilon, inp.sigma,
+                                           inp.force_cut)
+            else:
+                raise ValueError(f"unknown forcetype {inp.forcetype}")
         scales = thermo_scales(inp.units, natoms,
                                prd[0] * prd[1] * prd[2])
 
         grid = min_surface_grid(len(devices), prd)
         solid = inp.forcetype == FORCE_EAM and inp.datafile is None
-        if nbins is None:
-            nb = cells.autotune_grid(prd, inp.neigh_cut, x_np, solid=solid,
-                                     multiple_of=grid)
-        else:
-            # a pinned grid snaps down to the mesh, never up
-            nb = cells.snap_to_mesh(
-                cells.choose_grid(prd, inp.neigh_cut, nbins), grid)
-            if nb is None:
-                raise ValueError(f"the grid {tuple(nbins)} has fewer cells "
-                                 f"than the mesh {grid} on an axis")
-        geom = cells.build_geometry(prd, inp.neigh_cut, x_np, nbins=nb,
-                                    capacity=capacity, solid=solid)
+        with clock.part("geometry"):
+            if nbins is None:
+                nb = cells.autotune_grid(prd, inp.neigh_cut, x_np,
+                                         solid=solid, multiple_of=grid)
+            else:
+                # a pinned grid snaps down to the mesh, never up
+                nb = cells.snap_to_mesh(
+                    cells.choose_grid(prd, inp.neigh_cut, nbins), grid)
+                if nb is None:
+                    raise ValueError(f"the grid {tuple(nbins)} has fewer "
+                                     f"cells than the mesh {grid} on an "
+                                     "axis")
+            geom = cells.build_geometry(prd, inp.neigh_cut, x_np, nbins=nb,
+                                        capacity=capacity, solid=solid)
         mesh = make_mesh(devices, prd, grid)
         router = Router(mesh)
         dev0 = router.groups[0][0]
@@ -203,22 +212,32 @@ class ShardedSimulation:
                 from ..ops.eam_grid import make_eam_force_grid as make
             return run_fn, make(geom, model, dtype, dev0)[0]
 
+        with clock.part("kernels"):
+            if dtype == torch.float32 and any(
+                    dev.type == "cuda" for dev, _ in router.groups):
+                _build.lib()
         run_fn, force0 = rebuild(geom)
-        st = init_state(x_np, v_np, typ_np, geom, dtype=dtype, device=dev0)
-        f0, eng0, vir0 = force0(st.x, st.typ)
-        if row0 is None:
-            t0 = float(thermo.temperature(st.v, mass, scales))
-            row0 = (0, t0, float(thermo.energy(eng0, natoms, scales)),
-                    float(thermo.pressure(t0, vir0, scales)))
-        state = sharded_from_grid(*_grid_view(st.x, st.v, f0, st.typ,
-                                              st.valid, geom),
-                                  mesh, geom, dtype)
+        with clock.part("upload"):
+            st = init_state(x_np, v_np, typ_np, geom, dtype=dtype,
+                            device=dev0)
+        with clock.part("first_force"):
+            f0, eng0, vir0 = force0(st.x, st.typ)
+            if row0 is None:
+                t0 = float(thermo.temperature(st.v, mass, scales))
+                row0 = (0, t0, float(thermo.energy(eng0, natoms, scales)),
+                        float(thermo.pressure(t0, vir0, scales)))
+        with clock.part("upload"):   # the domains' shares of it
+            state = sharded_from_grid(*_grid_view(st.x, st.v, f0, st.typ,
+                                                  st.valid, geom),
+                                      mesh, geom, dtype)
         return ShardedSimulation(
             inp=inp, geom=geom, mesh=mesh, router=router, run_fn=run_fn,
             natoms=natoms, scales=scales, mass=mass, state_=state,
             dtype=dtype, dtforce=dtforce, row0=row0, _rebuild=rebuild,
             _buf_cap=exchange_buf_cap, half_neigh=half_neigh,
-            ghost_newton=ghost_newton)
+            ghost_newton=ghost_newton,
+            setup_record=keep_setup({**clock.record,
+                                     "built": _build.built}))
 
     def run(self, ntimes: int, n0: int = 0) -> np.ndarray:
         """Run ntimes steps; returns the (ntimes, 3) T/U/P trace, rows on

@@ -32,7 +32,7 @@ import torch
 from ..cells import CellGeometry
 from ..ops.pairgrid import _pad_halo
 from ..thermo import ordered_sum
-from ..timer import TIME_COMM, TIME_FORCE, TIME_NEIGH
+from ..timer import TIME_COMM, TIME_FORCE, TIME_NEIGH, no_span, spans
 from .mesh import AXES, Mesh, Router
 
 _AXIS_OF_GRID = {0: "z", 1: "y", 2: "x"}   # grid axis -> mesh axis name
@@ -101,20 +101,24 @@ def make_exchanges(mesh: Mesh, prd, h: int, nb_local):
     return exchanges
 
 
-def _comm(method):
+def _comm(name):
     """A Halo method that a timed run stamps as COMM (the reference's
     communicate and reverse_communicate): with `stamp` set, the time up to
     the call is closed as FORCE and the call's own as COMM, each stamp
-    after a sync of the mesh's cards."""
-    @functools.wraps(method)
-    def timed(self, *args):
-        if self.stamp is None:
-            return method(self, *args)
-        self.stamp(TIME_FORCE)
-        out = method(self, *args)
-        self.stamp(TIME_COMM)
-        return out
-    return timed
+    after a sync of the mesh's cards. The call is the span `name` of the
+    run's span helper (`span`, set by make_sharded_run's run)."""
+    def wrap(method):
+        @functools.wraps(method)
+        def timed(self, *args):
+            if self.stamp is not None:
+                self.stamp(TIME_FORCE)
+            with self.span(name):
+                out = method(self, *args)
+            if self.stamp is not None:
+                self.stamp(TIME_COMM)
+            return out
+        return timed
+    return wrap
 
 
 class Halo:
@@ -126,7 +130,8 @@ class Halo:
     sharded CUDA pair kernels (which wrap the other axes themselves).
     `shape` is the padded (Z, Y, X, C) and `nslots` its slot count; fold
     is the adjoint of the fill, for the half-neighbor paths' Newton folds.
-    `stamp` is set by a timed run (make_sharded_run).
+    `stamp` is set by a timed run and `span` by every run
+    (make_sharded_run).
 
     A group reads its own domains' slots in place and receives from each
     other group only the slots its padded fields read (`sends`: per
@@ -137,6 +142,7 @@ class Halo:
     and copies nothing."""
 
     stamp = None
+    span = staticmethod(no_span)
 
     def __init__(self, geom: CellGeometry, mesh: Mesh, router: Router,
                  h: int, nb_local, dtype, wrap: bool = True):
@@ -217,7 +223,7 @@ class Halo:
         return sum(int(i.numel()) for ship in self._ship for s, i in ship
                    if s == g)
 
-    @_comm
+    @_comm("minimd.halo")
     def positions(self, xs):
         """Per group (Dg, 3, nslots): the padded positions of its domains
         from every domain's (D, 3, M_local) positions."""
@@ -227,7 +233,7 @@ class Halo:
         return [f.take(i3).reshape(s.shape) + s
                 for f, i3, s in zip(flat, self.idx3, self.shift)]
 
-    @_comm
+    @_comm("minimd.halo")
     def scalars(self, ts):
         """Per group (Dg, nslots): a padded per-slot field (types, fp),
         unshifted."""
@@ -237,7 +243,7 @@ class Halo:
         return [f.take(i).reshape(len(ks), self.nslots)
                 for f, i, (_, ks) in zip(flat, self.idx, self.groups)]
 
-    @_comm
+    @_comm("minimd.fold")
     def fold(self, parts):
         """The adjoint of positions and scalars: per group (Dg, [3,]
         M_local), every padded slot's value of parts (per group (Dg, [3,]
@@ -539,7 +545,12 @@ def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
     integrate.cpp:101-192 stamps): the mesh's cards synchronized at every
     stamp, COMM the halo (and the half paths' folds), NEIGH the
     migration, FORCE the rest; the steps are run()'s, so are the bits.
-    audit(x): called with the positions just before each migration."""
+    audit(x): called with the positions just before each migration.
+
+    While a torch profiler records, each step opens the spans minimd.kick
+    (the first kick and drift, then the second kick), minimd.migrate (the
+    migration), minimd.force (with minimd.halo and minimd.fold, the Halo
+    calls, inside it) and minimd.thermo (timer.py)."""
     tsc = mass * scales.t_scale
     dev0 = router.groups[0][0]
     cards = [d for d, _ in router.groups if d.type == "cuda"]
@@ -547,6 +558,7 @@ def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
     def run(state, ntimes: int, n0: int = 0, end: int | None = None,
             timer=None, audit=None):
         end = n0 + ntimes - 1 if end is None else end
+        span = spans()
         stamp = None
         if timer is not None:
             def stamp(which=None):
@@ -555,17 +567,17 @@ def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
                 timer.stamp(which)
             stamp()
         for hl in force.halos:
-            hl.stamp = stamp
+            hl.stamp, hl.span = stamp, span
         try:
-            out = loop(state, ntimes, n0, end, stamp, audit)
+            out = loop(state, ntimes, n0, end, stamp, audit, span)
         finally:
             for hl in force.halos:
-                hl.stamp = None
+                hl.stamp, hl.span = None, no_span
         if stamp is not None:
             stamp(TIME_FORCE)
         return out
 
-    def loop(state, ntimes, n0, end, stamp, audit):
+    def loop(state, ntimes, n0, end, stamp, audit, span):
         x, v, f, typ, valid = (list(getattr(state, k)) for k in
                                ("x", "v", "f", "typ", "valid"))
         G = len(x)
@@ -574,34 +586,40 @@ def make_sharded_run(force, exchange_rebin, router: Router, *, mass: float,
                for d, ks in router.groups]
         for n in range(ntimes):
             gstep = n0 + n
-            for g in range(G):
-                v[g].add_(f[g], alpha=dtforce)
-                x[g].add_(v[g], alpha=dt)
+            with span("minimd.kick"):
+                for g in range(G):
+                    v[g].add_(f[g], alpha=dtforce)
+                    x[g].add_(v[g], alpha=dt)
             if (gstep + 1) % neigh_every == 0:
                 if audit is not None:
                     audit(x)
                 if stamp is not None:
                     stamp(TIME_FORCE)
-                x, v, typ, valid, o = exchange_rebin(x, v, typ, valid)
-                ovf = [a + b for a, b in zip(ovf, o)]
+                with span("minimd.migrate"):
+                    x, v, typ, valid, o = exchange_rebin(x, v, typ, valid)
+                    ovf = [a + b for a, b in zip(ovf, o)]
                 if stamp is not None:
                     stamp(TIME_NEIGH)
             if nstat > 0:
                 ev = (gstep + 1) % nstat == 0 or gstep == end
             else:
                 ev = gstep == end
-            f, eng, vir = force(x, typ, ev)
-            for g in range(G):
-                v[g].add_(f[g], alpha=dtforce)
+            with span("minimd.force"):
+                f, eng, vir = force(x, typ, ev)
+            with span("minimd.kick"):
+                for g in range(G):
+                    v[g].add_(f[g], alpha=dtforce)
             if ev:
-                vsq = router.domain_sum([ordered_sum(
-                    vg * vg, lead=1, dtype=torch.float64) for vg in v])
-                t = vsq * tsc
-                e = router.domain_sum(eng)
-                w = router.domain_sum(vir)
-                trace[n] = torch.stack([
-                    t, e * scales.e_scale / natoms,
-                    (t * scales.dof_boltz + w) * scales.p_scale]).to(dtype)
+                with span("minimd.thermo"):
+                    vsq = router.domain_sum([ordered_sum(
+                        vg * vg, lead=1, dtype=torch.float64) for vg in v])
+                    t = vsq * tsc
+                    e = router.domain_sum(eng)
+                    w = router.domain_sum(vir)
+                    trace[n] = torch.stack([
+                        t, e * scales.e_scale / natoms,
+                        (t * scales.dof_boltz + w) * scales.p_scale]
+                    ).to(dtype)
         from ..state import ShardedState
         return (ShardedState(x=x, v=v, f=f, typ=typ, valid=valid),
                 router.domain_sum(ovf), trace)

@@ -35,6 +35,14 @@ rebin kernels still run it when the state is float32.
 
 run_timed() runs the same steps as run() with phase timers (FORCE, NEIGH)
 and a card sync at every stamp.
+
+While a torch profiler records, run() opens the spans minimd.run (the
+call), minimd.run.begin, minimd.interval (each reneighbor interval),
+minimd.kick (a fused interval's seed), minimd.rebin, minimd.thermo,
+minimd.run.end and minimd.regrow (timer.py), none of them once a step
+outside the fused path's seed; construction times its parts
+(minimd.setup.geometry, .upload, .tables, .kernels, .first_force) into
+setup_record, seconds by name and `built` (this process ran nvcc).
 """
 
 from __future__ import annotations
@@ -45,9 +53,9 @@ import functools
 import numpy as np
 import torch
 
-from . import cells, create, thermo
+from . import _build, cells, create, thermo
 from .config import FORCE_EAM, FORCE_LJ, UNITS_METAL, In
-from .timer import TIME_FORCE, TIME_NEIGH
+from .timer import TIME_FORCE, TIME_NEIGH, SetupClock, keep_setup, spans
 from .ops.eam import EAMTables
 from .ops.lj import LJParams
 from .ops.pairgrid import halo_extent
@@ -129,6 +137,8 @@ class Simulation:
     _user_capacity: object = None
     _regrows: int = 0
     _row0: tuple | None = None
+    # set-up's parts: host-clock seconds by name, and `built`
+    setup_record: dict = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------------
     # construction
@@ -166,15 +176,20 @@ class Simulation:
         # (cells.pick_capacity), as the JAX package does. Wrong vouches
         # fail loudly via the rebin overflow counter.
         solid = inp.forcetype == FORCE_EAM and inp.datafile is None
-        geom = cells.build_geometry(prd, inp.neigh_cut, x_np, nbins=nbins,
-                                    capacity=capacity, solid=solid)
-        state = init_state(x_np, v_np, typ_np, geom, dtype=dtype,
-                           device=device)
+        clock = SetupClock()
+        with clock.part("geometry"):
+            geom = cells.build_geometry(prd, inp.neigh_cut, x_np, nbins=nbins,
+                                        capacity=capacity, solid=solid)
+        with clock.part("upload"):
+            state = init_state(x_np, v_np, typ_np, geom, dtype=dtype,
+                               device=device)
         sim = Simulation.from_state(
             inp, geom, state, mass, ntypes=ntypes, dtype=dtype, device=device,
             potential_path=potential_path, half_neigh=half_neigh,
             ghost_newton=ghost_newton, fused_step=fused_step)
         sim._user_nbins, sim._user_capacity = nbins, capacity
+        sim.setup_record = keep_setup({**clock.record,
+                                       **sim.setup_record})
         return sim
 
     @staticmethod
@@ -191,6 +206,7 @@ class Simulation:
         mass is the potential file's."""
         _check_options(inp, dtype, half_neigh, fused_step)
         device = torch.device(device)
+        clock = SetupClock()
         valid = state.valid.cpu().numpy()
         # atoms a capacity overflow dropped still count (grow-and-replay
         # restores them)
@@ -198,15 +214,18 @@ class Simulation:
         if ntypes is None:
             typ = state.typ.cpu().numpy()[valid]
             ntypes = int(typ.max()) + 1 if natoms else 1
+        cuda = device.type == "cuda"
+        kernels = cuda and dtype == torch.float32
         params = tables = None
-        if inp.forcetype == FORCE_LJ:
-            params = LJParams.from_deck(ntypes, inp.epsilon, inp.sigma,
-                                        inp.force_cut)
-        elif inp.forcetype == FORCE_EAM:
-            tables = EAMTables.from_funcfl(potential_path)
-            mass = tables.mass
-        else:
-            raise ValueError(f"unknown forcetype {inp.forcetype}")
+        with clock.part("tables"):
+            if inp.forcetype == FORCE_LJ:
+                params = LJParams.from_deck(ntypes, inp.epsilon, inp.sigma,
+                                            inp.force_cut)
+            elif inp.forcetype == FORCE_EAM:
+                tables = EAMTables.from_funcfl(potential_path)
+                mass = tables.mass
+            else:
+                raise ValueError(f"unknown forcetype {inp.forcetype}")
         scales = thermo_scales(inp.units, natoms,
                                float(np.prod(np.asarray(geom.prd))))
         dtforce = 0.5 * inp.dt
@@ -219,8 +238,17 @@ class Simulation:
             mass=mass, dtforce=dtforce, dtype=dtype, device=device,
             params=params, tables=tables, fused_step=fused_step,
             half_neigh=half_neigh, ghost_newton=ghost_newton)
+        with clock.part("tables"):
+            if sim._force_path(geom, cuda) in ("eam_cuda", "eam_grid"):
+                tables.polys    # the pair polynomials' fit, which they read
+        with clock.part("kernels"):
+            if kernels:   # float32 on the card: a force or rebin kernel
+                _build.lib()
         sim._set_geometry(geom)
-        sim._compute_initial_force()
+        with clock.part("first_force"):
+            sim._compute_initial_force()
+        sim.setup_record = keep_setup({**clock.record,
+                                       "built": _build.built})
         return sim
 
     def _set_geometry(self, geom: cells.CellGeometry):
@@ -254,13 +282,17 @@ class Simulation:
             rebin, geom=geom, consts=cells.RebinConstants.build(
                 geom, self.dtype, self.device))
 
-    def _make_force(self, geom: cells.CellGeometry, cuda: bool):
-        """(force_ev, force_noev) for a geometry on this device, on the
-        path that force_path picks."""
-        path = force_path(
+    def _force_path(self, geom: cells.CellGeometry, cuda: bool) -> str:
+        """force_path for a geometry."""
+        return force_path(
             self.inp.forcetype, cuda=cuda, dtype=self.dtype,
             reach=halo_extent(geom), half_neigh=self.half_neigh,
             uniform=self.params is None or self.params.uniform)
+
+    def _make_force(self, geom: cells.CellGeometry, cuda: bool):
+        """(force_ev, force_noev) for a geometry on this device, on the
+        path that force_path picks."""
+        path = self._force_path(geom, cuda)
         args = (geom, self.params if self.tables is None else self.tables,
                 self.dtype, self.device)
         if path == "lj_half":
@@ -320,23 +352,31 @@ class Simulation:
         return self._run(ntimes, timer=timer, check_exchange=check_exchange)
 
     def _run(self, ntimes, timer=None, check_exchange=False) -> np.ndarray:
+        span = spans()
+        with span("minimd.run"):
+            return self._steps(ntimes, timer, check_exchange, span)
+
+    def _steps(self, ntimes, timer, check_exchange, span) -> np.ndarray:
         ntimes = self.inp.ntimes if ntimes is None else ntimes
         every, nstat = self.inp.neigh_every, self.inp.thermo_nstat
         dt, dtf = self.inp.dt, self.dtforce
         mass, scales, natoms = self.mass, self.scales, self.natoms
         timed = timer is not None
 
-        # The kicks and drifts below update x and v (and the fused step w)
-        # in place (one pass each instead of two). That would destroy the
-        # state a replay after an overflow restarts from, so keep an
-        # untouched copy (a timed run regrows in place and never replays).
-        before = self.state if timed else self.state.clone()
-        x, v, f, typ = (self.state.x, self.state.v, self.state.f,
-                        self.state.typ)
-        # columns T, U, P, rebin overflow; stays on the device
-        trace = torch.zeros((ntimes, 4), dtype=self.dtype, device=self.device)
-        eng = vir = None
-        xold = x.clone() if check_exchange else None
+        with span("minimd.run.begin"):
+            # The kicks and drifts below update x and v (and the fused
+            # step w) in place (one pass each instead of two). That would
+            # destroy the state a replay after an overflow restarts from,
+            # so keep an untouched copy (a timed run regrows in place and
+            # never replays).
+            before = self.state if timed else self.state.clone()
+            x, v, f, typ = (self.state.x, self.state.v, self.state.f,
+                            self.state.typ)
+            # columns T, U, P, rebin overflow; stays on the device
+            trace = torch.zeros((ntimes, 4), dtype=self.dtype,
+                                device=self.device)
+            eng = vir = None
+            xold = x.clone() if check_exchange else None
 
         def stamp(which):
             if self.device.type == "cuda":
@@ -360,7 +400,8 @@ class Simulation:
             xn, vn, tn, ovf = self.rebin_fn(x, v, typ)
             if int(ovf) > 0:
                 # the re-layout on the host is the rebin: go on from it
-                xn, vn, tn = self._regrow_mid_run(x, v, typ)
+                with span("minimd.regrow"):
+                    xn, vn, tn = self._regrow_mid_run(x, v, typ)
             if check_exchange:
                 xold = xn.clone()
             stamp(TIME_NEIGH)
@@ -370,7 +411,8 @@ class Simulation:
             """The step's rebin (on reneighbor steps), force and second
             kick, and its thermo row."""
             if (n + 1) % every == 0:
-                x, v, typ = rebin(n, x, v, typ)
+                with span("minimd.rebin"):
+                    x, v, typ = rebin(n, x, v, typ)
             # energy/virial on thermo steps and on the final step, so the
             # trace always ends with a thermo row (sim.py:400 of the JAX
             # package; the reference's final compute, ljs.cpp:477-483)
@@ -379,7 +421,8 @@ class Simulation:
                 x, typ)
             v.add_(f, alpha=dtf)
             if evflag or nstat == 0:
-                row(n, thermo.temperature(v, mass, scales), eng, vir)
+                with span("minimd.thermo"):
+                    row(n, thermo.temperature(v, mass, scales), eng, vir)
             return x, v, f, typ, eng, vir
 
         if timed:
@@ -393,48 +436,59 @@ class Simulation:
             tsc = mass * scales.t_scale
             start = ntimes - ntimes % every
             for n0 in range(0, start, every):
-                x, w = self.seed_fn(x, v, f)
-                spare = torch.empty_like(x)    # positions ping-pong
-                for n in range(n0, n0 + every - 1):
-                    evflag = (n + 1) % nstat == 0
-                    xn, w, e, vr, vsq = self.step_fn(x, w, evflag, out=spare)
-                    x, spare = xn, x
-                    if evflag:
-                        row(n, vsq * tsc, e, vr)
-                x, v, f, typ, eng, vir = finish(n0 + every - 1, x, w, typ)
-        for n in range(start, ntimes):
-            v.add_(f, alpha=dtf)
-            x.add_(v, alpha=dt)
-            x, v, f, typ, eng, vir = finish(n, x, v, typ)
+                with span("minimd.interval"):
+                    with span("minimd.kick"):
+                        x, w = self.seed_fn(x, v, f)
+                    spare = torch.empty_like(x)    # positions ping-pong
+                    for n in range(n0, n0 + every - 1):
+                        evflag = (n + 1) % nstat == 0
+                        xn, w, e, vr, vsq = self.step_fn(x, w, evflag,
+                                                         out=spare)
+                        x, spare = xn, x
+                        if evflag:
+                            with span("minimd.thermo"):
+                                row(n, vsq * tsc, e, vr)
+                    x, v, f, typ, eng, vir = finish(n0 + every - 1, x, w,
+                                                    typ)
+        # one interval a reneighbor (the last may be partial)
+        for n0 in range(start, ntimes, every):
+            with span("minimd.interval"):
+                for n in range(n0, min(n0 + every, ntimes)):
+                    v.add_(f, alpha=dtf)
+                    x.add_(v, alpha=dt)
+                    x, v, f, typ, eng, vir = finish(n, x, v, typ)
         if timed:
             stamp(TIME_FORCE)
 
-        host = trace.cpu().numpy()   # an untimed run's one host sync
-        overflow = before.overflow + int(host[:, 3].sum())
-        if overflow > 0:
-            if timed or self.geom.capacity >= cells.MAX_CAPACITY:
-                raise RuntimeError(
-                    f"cell capacity overflow: {overflow} atom(s) did not "
-                    f"fit (capacity {self.geom.capacity}); rebuild with a "
-                    "larger --capacity")
-            # grow-and-replay, the reference's neighbor-bin resize
-            # semantics (neighbor.cpp:186-208): the overflowed trajectory
-            # dropped atoms, so restart from the pre-run state
-            old_nb, old_cap = self.geom.nb, self.geom.capacity
+        with span("minimd.run.end"):
+            host = trace.cpu().numpy()   # an untimed run's one host sync
+            overflow = before.overflow + int(host[:, 3].sum())
+            if overflow == 0:
+                self.state = MDState(x=x, v=v, f=f, typ=typ,
+                                     valid=cells.is_valid(x),
+                                     overflow=overflow)
+                # thermo state after a run comes from an evflag force on
+                # the final positions (ljs.cpp:477-483): the last step
+                # computed exactly that unless nstat == 0 (or the run was
+                # empty)
+                if not (nstat > 0 and ntimes > 0):
+                    _, eng, vir = self.force_fn(x, typ)
+                self.eng_vdwl, self.virial = eng, vir
+                return host[:, :3]
+        if timed or self.geom.capacity >= cells.MAX_CAPACITY:
+            raise RuntimeError(
+                f"cell capacity overflow: {overflow} atom(s) did not "
+                f"fit (capacity {self.geom.capacity}); rebuild with a "
+                "larger --capacity")
+        # grow-and-replay, the reference's neighbor-bin resize semantics
+        # (neighbor.cpp:186-208): the overflowed trajectory dropped atoms,
+        # so restart from the pre-run state
+        old_nb, old_cap = self.geom.nb, self.geom.capacity
+        with span("minimd.regrow"):
             self._regrow(before, cells.next_capacity(old_cap), retune=True)
-            print(f"# resize: grid {old_nb} C={old_cap} -> {self.geom.nb} "
-                  f"C={self.geom.capacity} (rebin overflow), replaying")
-            return self._run(ntimes)
-
-        self.state = MDState(x=x, v=v, f=f, typ=typ, valid=cells.is_valid(x),
-                             overflow=overflow)
-        # thermo state after a run comes from an evflag force on the final
-        # positions (ljs.cpp:477-483): the last step computed exactly that
-        # unless nstat == 0 (or the run was empty)
-        if not (nstat > 0 and ntimes > 0):
-            _, eng, vir = self.force_fn(x, typ)
-        self.eng_vdwl, self.virial = eng, vir
-        return host[:, :3]
+        print(f"# resize: grid {old_nb} C={old_cap} -> {self.geom.nb} "
+              f"C={self.geom.capacity} (rebin overflow), replaying")
+        return self._steps(ntimes, None, False, span)
 
     def _regrow_mid_run(self, x, v, typ):
         """A timed run's rebin overflowed: lay the pre-rebin state out in a
