@@ -215,6 +215,9 @@ STAGE_MAX = 9 * 512
 # (PERF.md, the LJ pair loop findings)
 # (the shapes past C = 512 take it too, untried at +-0.12)
 LJ_KICK = {"cap512": 0.04, "cap520": 0.04, "c936": 0.04, "stage": 0.04}
+# the Verlet list's plain mirror walks M x 27*C candidates: held against
+# the kernel's list up to this many (131k: 2.1e8)
+LIST_MIRROR_CELLS = 3e8
 # the EAM kernels (both forms) also at C = 512 (the force pass's largest
 # stage, STAGE_MAX candidates with fp, takes 92 KB of shared memory,
 # opted in) and on a lattice of twice the deck's density, where a cell keeps more
@@ -271,6 +274,63 @@ def ptxas_summary(log):
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def lj_list_times(geom, params, x, typ, k_ev, k_noev, iters):
+    """ms a call of the LJ closures at x: the force over a kept list with
+    its check and idle repair (lj, lj_ev), a call that names a new layout
+    and so builds the list first (lj_fresh), and one whose check fails, so
+    that the card repairs the list (lj_stale: every atom's build position
+    moved by 1 first), with the build and the repair alone (lj_build,
+    lj_repair: the differences), against the cell-walk kernel (lj_walk,
+    lj_walk_ev)."""
+    import itertools
+
+    from minimd_torch.ops import lj_cuda
+
+    names = itertools.count(1)
+    t = {"lj_fresh": cuda_ms(lambda: k_noev(x, typ, layout=next(names)),
+                             iters)}
+    nl = k_ev.verlet
+    kept = nl.layout
+    t["lj_ev"] = cuda_ms(lambda: k_ev(x, typ, layout=kept), iters)
+    t["lj"] = cuda_ms(lambda: k_noev(x, typ, layout=kept), iters)
+    t["lj_build"] = t["lj_fresh"] - t["lj"]
+
+    def stale():
+        nl.xref.add_(1.0)
+        k_noev(x, typ, layout=kept)
+
+    t["lj_stale"] = cuda_ms(stale, iters)
+    t["lj_repair"] = t["lj_stale"] - t["lj"] - cuda_ms(
+        lambda: nl.xref.add_(1.0), iters)
+    t["lj_walk"] = cuda_ms(
+        lambda: lj_cuda.cell_walk(geom, params, x, False), iters)
+    t["lj_walk_ev"] = cuda_ms(
+        lambda: lj_cuda.cell_walk(geom, params, x, True), iters)
+    return t
+
+
+def time_lj_relaxed(label, sim, steps, iters):
+    """The LJ list force, its build and the cell walk (lj_list_times) on
+    a Simulation's state after `steps` more steps: a relaxed state, where
+    the lattice's shells have spread; and the repairs that the card's
+    drift check made over those steps (repairs, and per interval)."""
+    nl = sim.force_fn.verlet
+    before = int(nl.rebuilds)
+    sim.run(steps)
+    repairs = int(nl.rebuilds) - before
+    x, typ = sim.state.x, sim.state.typ
+    t = lj_list_times(sim.geom, sim.params, x, typ, sim.force_fn,
+                      sim.force_fn_noev, iters)
+    t["repairs"] = repairs
+    t["repairs_per_interval"] = repairs * sim.inp.neigh_every / steps
+    phase("kernel-time", f"lj {label} relaxed ({steps} steps more) "
+          f"nb={sim.geom.nb} C={sim.geom.capacity}: " + " ".join(
+              f"{k}={v:.4f}ms" for k, v in t.items()
+              if k.startswith("lj")) + f" repairs={repairs} "
+          f"({t['repairs_per_interval']:.2f} an interval)")
+    return t
 
 
 def cuda_ms(fn, iters):
@@ -530,6 +590,54 @@ def compare_lj(label, geom, params, x, typ):
         raise AssertionError(f"LJ kernel disagrees with its plain version "
                              f"at {label}")
     return err
+
+
+def compare_lj_list(label, geom, params, x, typ, cutneigh):
+    """The LJ closures' Verlet list (csrc/lj_list.cu) at one shape: its
+    entries and lengths against the plain mirror (pairgrid.verlet_lists,
+    where the mirror's walk of M x 27*C fits LIST_MIRROR_CELLS), and the
+    force over a fresh list against the cell-walk kernel bit for bit (f,
+    eng and virial with ev; f without). A geometry whose list does not fit
+    (lj_cuda.list_fits) keeps the cell walk: said so."""
+    import torch
+
+    from minimd_torch.cells import VALID_BELOW
+    from minimd_torch.ops import lj_cuda
+    from minimd_torch.ops.pairgrid import verlet_lists
+
+    C = geom.capacity
+    if not lj_cuda.list_fits(geom, x.device):
+        phase("compare", f"lj_list {label} nb={geom.nb} C={C}: no list "
+              f"(27*C={27 * C}), the cell walk")
+        return
+    k_ev, k_noev = lj_cuda.make_lj_force_cuda(geom, params, torch.float32,
+                                              "cuda", cutneigh=cutneigh)
+    same = []
+    for evflag, fn in ((True, k_ev), (False, k_noev)):
+        got = fn(x, typ, layout=0)
+        want = lj_cuda.cell_walk(geom, params, x, evflag)
+        same += [torch.equal(a, b) for a, b in zip(got, want)]
+    nl = k_ev.verlet
+    count = nl.count.long()
+    mirror = "skipped (too large)"
+    if geom.nslots * 27 * C <= LIST_MIRROR_CELLS:
+        entries, want = verlet_lists(geom, x, cutneigh ** 2, VALID_BELOW,
+                                     chunk=64)
+        K = entries.shape[0]
+        got = nl.entries[:K].long() & 0xFFFF
+        live = torch.arange(K, device=x.device)[:, None] < want[None, :]
+        mirror = (torch.equal(count, want) and torch.equal(
+            torch.where(live, got, -1), entries))
+    valid = x[0] < VALID_BELOW
+    ok = all(same) and mirror is not False
+    phase("compare", f"lj_list {label} nb={geom.nb} C={C}: list force "
+          f"bit-identical to the cell walk={all(same)} ({same}); lists = "
+          f"mirror's={mirror}; mean length {count[valid].double().mean():.2f}"
+          f" longest {int(nl.longest)} of {lj_cuda.list_rows(C)} rows, "
+          f"{nl.entries.numel() * 2 / 2**30:.3f} GiB -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the LJ Verlet list disagrees at {label}")
 
 
 def near_cut(geom, x, cut, rel=1e-6):
@@ -912,13 +1020,11 @@ def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
 
     params = lj_params(inp)
     x, v, typ, _ = cells.rebin_local(xp, st.v, st.typ, geom)
-    k_ev, k_noev = make_lj_force_cuda(geom, params, torch.float32, "cuda")
+    k_ev, k_noev = make_lj_force_cuda(geom, params, torch.float32, "cuda",
+                                      cutneigh=inp.neigh_cut)
     _, p_noev = make_lj_force_grid(geom, params, torch.float32, "cuda")
-    t = {
-        "lj_ev": cuda_ms(lambda: k_ev(x, typ), iters),
-        "lj": cuda_ms(lambda: k_noev(x, typ), iters),
-        "lj_plain": cuda_ms(lambda: p_noev(x, typ), plain_iters),
-    }
+    t = lj_list_times(geom, params, x, typ, k_ev, k_noev, iters)
+    t["lj_plain"] = cuda_ms(lambda: p_noev(x, typ), plain_iters)
     # the fused step (noev, the plain-step variant) from seed(x, v, f);
     # LJ units, mass 1: dtforce = dt/2. w is updated in place call after
     # call, which changes no work.
@@ -936,7 +1042,7 @@ def time_kernels(label, inp, geom, st, xp, iters, plain_iters):
     consts = cells.RebinConstants.build(geom, torch.float32, "cuda")
     # what the host spends to issue each launch of a plain step, of a
     # fused step and of a rebin
-    hosts = {"lj": lambda: k_noev(x, typ),
+    hosts = {"lj": lambda: k_noev(x, typ, layout=0),
              "step": lambda: k_step(x1, wk, False, out=spare),
              "kick": lambda: wk.add_(x1, alpha=0.0),
              "rebin": lambda: rebin(xp, st.v, st.typ)}
@@ -2687,6 +2793,7 @@ def main():
             stage_handover(label, "lj", geom, x, inp.force_cut)
         max_err["lj_force"] = max(max_err["lj_force"], compare_lj(
             label, geom, lj_params(inp), x, typ))
+        compare_lj_list(label, geom, lj_params(inp), x, typ, inp.neigh_cut)
         # the fused step chains 4 steps from a +-0.04 lattice: larger kicks
         # bring pairs to r < 1 sigma, where the LJ force is stiff enough
         # (dF/dr ~ 700 at +-0.08) that a pair counted by one version and
@@ -2822,6 +2929,7 @@ def main():
     for name, sim in sims.items():
         device_share(f"131k-{name}", sim, 200)
     idle = {"lj_131k": idle_split("131k-plain", sims["plain"], 200)}
+    relaxed = {"131k": time_lj_relaxed("131k", sims["plain"], 1000, 50)}
     del sims, sim
     times = {"131k": time_kernels("131k", *lattice(32), 50, 5)}
 
@@ -2850,6 +2958,7 @@ def main():
         device_share(f"864k-{name}", sim, 100)
     phase("memory-864k", f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           "GiB with both Simulations")
+    relaxed["864k"] = time_lj_relaxed("864k", sims["plain"], 1000, 20)
     del sims, sim
     times["864k"] = time_kernels("864k", *lattice(60), 20, 3)
 
@@ -3005,8 +3114,15 @@ def main():
                 "rebin_pull": path["main-131k"]["rebin_pull"],
                 "lj_step": path["main-131k-fused"]["lj_step"]}
     kernels = [
-        entry("lj_force", "minimd_torch/csrc/lj_force.cu",
-              "minimd_tpu/ops/lj_pallas.py:69", times, "lj"),
+        entry("lj_force", "minimd_torch/csrc/lj_list.cu",
+              "minimd_tpu/ops/lj_pallas.py:69", times, "lj",
+              build_ms=times["131k"]["lj_build"],
+              build_ms_864k=times["864k"]["lj_build"],
+              repair_ms=times["131k"]["lj_repair"],
+              repair_ms_864k=times["864k"]["lj_repair"],
+              cell_walk_ms=times["131k"]["lj_walk"],
+              cell_walk_ms_864k=times["864k"]["lj_walk"],
+              relaxed=relaxed),
         entry("rebin_pull", "minimd_torch/csrc/rebin.cu",
               "minimd_tpu/ops/rebin_pallas.py:217", times, "rebin",
               also_replaces=["minimd_tpu/ops/rebin_pallas.py:49",

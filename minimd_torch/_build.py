@@ -40,6 +40,14 @@ _SIGNATURES = {
     # valid_below, evflag, halo, ndom, stream
     "lj_force_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                         ctypes.c_double, _F, _F, _I, _I, _I, _P],
+    # x, list, count, xref, longest, nbx, nby, nbz, C, prdx, prdy, prdz,
+    # cutneigh^2, valid_below, stream
+    "lj_list_build_launch": [_P] * 5 + [_I] * 4 + [_F] * 5 + [_P],
+    # x, list, count, xref, longest, stale, rebuilds, f, eng, vir, nbx,
+    # nby, nbz, C, prdx, prdy, prdz, cutsq, eps, sig6, cutneigh^2,
+    # drift^2, valid_below, stamp, evflag, stream
+    "lj_list_force_launch": [_P] * 10 + [_I] * 4 + [_F] * 4 + [
+        ctypes.c_double] + [_F] * 4 + [_I, _I, _P],
     # x, v, typ, x_out, v_out, t_out, scratch, overflow, counts, nbx, nby,
     # nbz, C, prd (3), offset (3), 1/binsize (3), valid_below, global nb
     # (3), origin (3), dead, split, slot0, stream

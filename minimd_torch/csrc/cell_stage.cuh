@@ -132,15 +132,18 @@ __device__ __forceinline__ CellWalk cell_walk(const CellGrid& g, int cell,
 // One 32-wide step of the walk: this lane's candidate, when `in_range`, is
 // slot j of neighbor cell nb. A kept candidate goes to stage[kept + its
 // rank among this step's kept ones] (and its fp to sfp[...] when sfp is
-// given). Advances (nb, j) by 32 slots and returns the new count of kept
+// given, its stencil index nb*C + j to sidx[...] when sidx is given).
+// Advances (nb, j) by 32 slots and returns the new count of kept
 // candidates, the same in every lane.
 __device__ __forceinline__ int stage_step(const CellGrid& g,
                                           const CellWalk& cw, bool in_range,
                                           int& nb, int& j, float cut_keep,
                                           float valid_below, int kept,
                                           float4* stage, float* sfp = nullptr,
-                                          const float* fp = nullptr) {
+                                          const float* fp = nullptr,
+                                          uint16_t* sidx = nullptr) {
   const int lane = threadIdx.x;
+  const int w = nb * g.C + j;  // the stencil index, read only with sidx
   const int src = in_range ? nb : 0;
   const long long base = __shfl_sync(0xffffffffu, cw.base, src);
   const float shx = __shfl_sync(0xffffffffu, cw.sh[0], src);
@@ -169,6 +172,7 @@ __device__ __forceinline__ int stage_step(const CellGrid& g,
     const int at = kept + __popc(ballot & ((1u << lane) - 1u));
     stage[at] = cand;
     if (sfp != nullptr) sfp[at] = __ldg(fp + s);
+    if (sidx != nullptr) sidx[at] = (uint16_t)w;
   }
   return kept + __popc(ballot);
 }

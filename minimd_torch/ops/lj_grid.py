@@ -13,20 +13,25 @@ from __future__ import annotations
 
 import torch
 
-from ..cells import CellGeometry
+from ..cells import VALID_BELOW, CellGeometry
 from ..thermo import ordered_sum
 from .lj import LJParams
-from .pairgrid import halo_extent, pad_grid_int, stencil_slice, to_padded_soa
+from .pairgrid import (drift_limit, drifted, halo_extent, listed_pairs,
+                       pad_grid_int, stencil_slice, to_padded_soa,
+                       verlet_lists)
 
 
 def lj_pair_loop(Xp, Tp, geom: CellGeometry, params: LJParams, dtype,
-                 evflag: bool, nb_local=None):
+                 evflag: bool, nb_local=None, listed=None):
     """Dense stencil pair loop over padded coordinate grids.
 
     Xp: list of 3 padded (Z+2h, Y+2h, X+2h, C) coordinate grids.
     Tp: padded type grid (or None when parameters are type-uniform).
     nb_local: the interior's (X, Y, Z), a domain's local grid in a
     decomposed run (default geom.nb).
+    listed: None, or (Z, Y, X, C, S*C) bool, the pairs a Verlet list holds
+    (pairgrid.listed_pairs; stencil offset b at [..., b*C:(b+1)*C]): only
+    those count.
     Returns ([f0, f1, f2] interior force grids, eng, virial) with the raw
     full-neighbor sums already scaled (eng*4, virial*0.5).
     """
@@ -58,7 +63,7 @@ def lj_pair_loop(Xp, Tp, geom: CellGeometry, params: LJParams, dtype,
 
     # in-place updates below reuse each (cells, C, C) temporary once more
     # instead of allocating the next one
-    for off in offsets:
+    for b, off in enumerate(offsets):
         d = [Xi[k] - stencil_slice(Xp[k], off, h, nb)[..., None, :]
              for k in range(3)]
         rsq = d[0] * d[0]
@@ -74,6 +79,8 @@ def lj_pair_loop(Xp, Tp, geom: CellGeometry, params: LJParams, dtype,
         mask = rsq < cutsq
         if off == (0, 0, 0):
             mask &= ~diag
+        if listed is not None:
+            mask &= listed[..., b * C:(b + 1) * C]
         # sr2 == 0 for masked pairs, so every downstream term vanishes
         sr2 = torch.where(mask, rsq.reciprocal(), 0.0)
         sr6 = sr2 * sr2
@@ -111,3 +118,48 @@ def make_lj_force_grid(geom: CellGeometry, params: LJParams,
         return _force(x, typ, False)
 
     return force_ev, force_noev
+
+
+def lj_list_force(geom: CellGeometry, params: LJParams, x, entries, count,
+                  evflag: bool = True):
+    """(f (3, M), eng, virial): the plain force over a Verlet list
+    (pairgrid.verlet_lists' entries and count, in walk order), the mirror
+    of the LJ kernel's force over its list (csrc/lj_list.cu): lj_pair_loop
+    with only the listed pairs counted. While the list holds every pair
+    inside the cutoff, it is make_lj_force_grid's force bit for bit.
+    Type-uniform parameters, stencil reach 1."""
+    Xp = to_padded_soa(x, geom, 1)
+    f, eng, vir = lj_pair_loop(Xp, None, geom, params, x.dtype, evflag,
+                               listed=listed_pairs(geom, entries, count))
+    return torch.stack([fd.reshape(geom.nslots) for fd in f]), eng, vir
+
+
+class KeptList:
+    """The plain mirror of the Verlet list that the LJ kernel keeps over an
+    interval (csrc/lj_list.cu): built at construction on x, and
+    force(x, evflag) is lj_list_force over it, after a rebuild on x where
+    an atom has moved past drift_limit since the last build (the card's
+    check and repair; `repairs` counts them). So every call gives
+    make_lj_force_grid's answer bit for bit. Type-uniform parameters,
+    stencil reach 1, one layout."""
+
+    def __init__(self, geom: CellGeometry, params: LJParams,
+                 cutneigh: float, x: torch.Tensor):
+        self.geom, self.params = geom, params
+        self.cutneighsq = float(cutneigh) ** 2
+        self.limit = drift_limit(cutneigh,
+                                 float(params.cutforcesq[0]) ** 0.5)
+        self.repairs = 0
+        self._build(x)
+
+    def _build(self, x):
+        self.entries, self.count = verlet_lists(self.geom, x,
+                                                self.cutneighsq, VALID_BELOW)
+        self.xref = x.clone()
+
+    def force(self, x: torch.Tensor, evflag: bool = True):
+        if drifted(x, self.xref, self.limit, VALID_BELOW):
+            self._build(x)
+            self.repairs += 1
+        return lj_list_force(self.geom, self.params, x, self.entries,
+                             self.count, evflag)

@@ -12,7 +12,10 @@ The CUDA kernels read the raw grid with wrapped indices instead; the JAX
 package's candidate lane pack (`fused_lane_pack`) is a TPU layout idiom
 with no counterpart here. walk_candidates and kept_candidates, at the
 end, mirror the order in which the CUDA pair kernels walk that grid and
-the candidates they keep (csrc/cell_stage.cuh), for tests and counts.
+the candidates they keep (csrc/cell_stage.cuh), for tests and counts;
+verlet_lists mirrors the LJ kernel's Verlet list (csrc/lj_list.cu), and
+drift_limit and drifted its check of how far atoms have moved since the
+list was built.
 """
 
 from __future__ import annotations
@@ -193,3 +196,69 @@ def kept_candidates(geom: CellGeometry, x: torch.Tensor, cutsq: float,
     dsq = gap[0] * gap[0] + gap[1] * gap[1] + gap[2] * gap[2]
     cut = torch.tensor(cutsq, dtype=x.dtype) * KEEP_MARGIN
     return (raw < valid_below) & (dsq <= cut.to(x.device))
+
+
+def verlet_lists(geom: CellGeometry, x: torch.Tensor, cutsq: float,
+                 valid_below: float, chunk: int = 1024):
+    """(entries, count): the Verlet list of each slot in the LJ kernel's
+    layout (csrc/lj_list.cu): entries (K, M) int64, entry k of slot s at
+    [k, s], the stencil indices nb*C + j (neighbor cell nb of the walk,
+    slot j) of the candidates within the cutoff of the slot's atom, in
+    walk order, -1 past its end; count (M,) int64 the lengths, 0 for a
+    slot without an atom; K the longest (at least 1). A candidate is
+    listed iff its stored x and the slot's are below valid_below, its
+    rsq < cutsq rounded in x's dtype ((d0^2 + d1^2) + d2^2), and it is not
+    the slot itself. Computed `chunk` cells at a time."""
+    n, C = geom.ncells, geom.capacity
+    W = 27 * C
+    cand, raw = walk_candidates(geom, x)
+    own = x.reshape(3, n, C)
+    slot = torch.arange(C, device=x.device)
+    walk = torch.arange(W, device=x.device)
+    got = []
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, min(n, c0 + chunk))
+        d = own[:, sl, :, None] - cand[:, sl, None, :]
+        rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        near = ((rsq < cutsq) & (own[0, sl] < valid_below)[..., None]
+                & (raw[sl] < valid_below)[:, None, :])
+        near[:, slot, 13 * C + slot] = False       # the atom itself
+        got.append(near.reshape(-1, W))
+    near = torch.cat(got)
+    count = near.sum(dim=1)
+    # listed walk positions first, in walk order; the rest after them
+    order = torch.where(near, walk, W + walk).sort(dim=1).values
+    K = max(int(count.max()), 1) if len(count) else 1
+    entries = torch.where(order[:, :K] < W, order[:, :K], -1)
+    return entries.T.contiguous(), count
+
+
+def listed_pairs(geom: CellGeometry, entries: torch.Tensor,
+                 count: torch.Tensor) -> torch.Tensor:
+    """(nbz, nby, nbx, C, 27*C) bool: which walk positions each slot's
+    Verlet list (verlet_lists' entries and count) holds."""
+    K, M = entries.shape
+    W = 27 * geom.capacity
+    listed = torch.zeros((M, W + 1), dtype=torch.bool, device=entries.device)
+    live = torch.arange(K, device=entries.device)[:, None] < count[None, :]
+    listed.scatter_(1, torch.where(live, entries, W).T, True)
+    nbx, nby, nbz = geom.nb
+    return listed[:, :W].reshape(nbz, nby, nbx, geom.capacity, W)
+
+
+def drift_limit(cutneigh: float, cutforce: float) -> float:
+    """How far an atom may move from where a Verlet list over cutneigh was
+    built before the list may miss a pair inside cutforce: half the skin,
+    less 2^-6 of it for the rounding of float32 positions (boxes up to
+    ~10^4 sigma). At most 0: no list helps."""
+    return 0.5 * (cutneigh - cutforce) * (1.0 - 2.0 ** -6)
+
+
+def drifted(x: torch.Tensor, xref: torch.Tensor, limit: float,
+            valid_below: float) -> bool:
+    """Whether an atom of x (a slot below valid_below) lies farther than
+    `limit` from its slot's position in xref, the check that the LJ
+    kernel's force makes before it trusts its list."""
+    d = x - xref
+    dsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    return bool(((x[0] < valid_below) & (dsq > limit * limit)).any())

@@ -137,6 +137,12 @@ class Simulation:
     _user_capacity: object = None
     _regrows: int = 0
     _row0: tuple | None = None
+    # the name of the cell layout, for force closures that keep a Verlet
+    # list over it (ops/lj_cuda.py, the "lj_cuda" path of the plain step):
+    # passed to them as `layout`, renewed at every change of layout; None
+    # on other paths and with fused_step (whose force calls follow a
+    # rebin, so the cell walk serves them)
+    _layout: int | None = None
     # set-up's parts: host-clock seconds by name, and `built`
     setup_record: dict = dataclasses.field(default_factory=dict)
 
@@ -256,6 +262,8 @@ class Simulation:
         self.geom = geom
         cuda = self.device.type == "cuda"
         self.force_fn, self.force_fn_noev = self._make_force(geom, cuda)
+        self._layout = 0 if (self._force_path(geom, cuda) == "lj_cuda"
+                             and not self.fused_step) else None
         if self.fused_step:
             self.step_fn, self.seed_fn = self._make_step(geom, cuda)
         self.rebin_fn = self._make_rebin(geom, cuda)
@@ -301,7 +309,8 @@ class Simulation:
         if path == "eam_half":
             from .ops.eam_half import make_eam_force_half as make
         elif path == "lj_cuda":
-            from .ops.lj_cuda import make_lj_force_cuda as make
+            from .ops.lj_cuda import make_lj_force_cuda
+            return make_lj_force_cuda(*args, cutneigh=self.inp.neigh_cut)
         elif path == "lj_grid":
             from .ops.lj_grid import make_lj_force_grid as make
         elif path == "eam_cuda":
@@ -314,8 +323,16 @@ class Simulation:
             return force, force
         return make(*args)
 
+    def _force(self, evflag: bool, x, typ):
+        """The force closure's (f, eng, virial) on x, naming the layout to
+        a closure that keeps a Verlet list."""
+        fn = self.force_fn if evflag else self.force_fn_noev
+        if self._layout is None:
+            return fn(x, typ)
+        return fn(x, typ, layout=self._layout)
+
     def _compute_initial_force(self):
-        f, eng, vir = self.force_fn(self.state.x, self.state.typ)
+        f, eng, vir = self._force(True, self.state.x, self.state.typ)
         self.state.f = f
         self.eng_vdwl, self.virial = eng, vir
         self._row0 = self.thermo_row(0)
@@ -413,12 +430,13 @@ class Simulation:
             if (n + 1) % every == 0:
                 with span("minimd.rebin"):
                     x, v, typ = rebin(n, x, v, typ)
+                if self._layout is not None:
+                    self._layout += 1    # the Verlet list is built anew
             # energy/virial on thermo steps and on the final step, so the
             # trace always ends with a thermo row (sim.py:400 of the JAX
             # package; the reference's final compute, ljs.cpp:477-483)
             evflag = nstat > 0 and ((n + 1) % nstat == 0 or n == ntimes - 1)
-            f, eng, vir = (self.force_fn if evflag else self.force_fn_noev)(
-                x, typ)
+            f, eng, vir = self._force(evflag, x, typ)
             v.add_(f, alpha=dtf)
             if evflag or nstat == 0:
                 with span("minimd.thermo"):
@@ -472,7 +490,7 @@ class Simulation:
                 # computed exactly that unless nstat == 0 (or the run was
                 # empty)
                 if not (nstat > 0 and ntimes > 0):
-                    _, eng, vir = self.force_fn(x, typ)
+                    _, eng, vir = self._force(True, x, typ)
                 self.eng_vdwl, self.virial = eng, vir
                 return host[:, :3]
         if timed or self.geom.capacity >= cells.MAX_CAPACITY:
